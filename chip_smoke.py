@@ -7,26 +7,34 @@ Run from the root of a checkout.  Phases, each printing its own lines:
 
 1. the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
    power limit);
-2. build: nvcc compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a,
-   Triton compiles the fused-field kernel;
+2. build: one nvcc per ``src/repro_torch/kernels/csrc/*.cu``, all started
+   together, for sm_90a; Triton compiles the fused-field kernel;
 3. kernels: every hand-written kernel against its plain PyTorch version at
-   the main path's shape (200^3) and at a ragged one, then timed with CUDA
-   events beside its plain version, its library call where one exists,
-   and its bound;
-4. the main path: SIMPLE steps of the 3-D lid-driven cavity at 200^3
+   its path's shape (200^3 for K1-K4; B=4, T=1024, H=64, hd=64 for the
+   RWKV6 scan K5) and at a ragged one, then timed with CUDA events beside
+   its plain version, its library call where one exists, and its bound;
+4. the CFD path: SIMPLE steps of the 3-D lid-driven cavity at 200^3
    (8.0M cells, size M of the OpenFOAM HPC Technical Committee's
    ``Lid-driven_cavity-3d`` benchmark) under the unified policy through the ``hopper`` variants, with every
    kernel's launch count, then one step held against the ``ref`` step;
 5. the discrete policy: one step paying real staging copies, held against
    the unified step;
-6. a ``kernels`` JSON line (kernels of the path) and a ``port_status`` JSON
-   line (every TPU kernel of the reference and whether it is ported).
+6. the serve path: ``rwkv6-7b`` at full width (32 layers, random weights
+   from ``--seed``), batch 4, prompt 1024, 32 greedy tokens, through the
+   captured prefill and decode programs under the unified policy with the
+   ``hopper`` variants; K5's launches, the tokens against the uncaptured
+   path, the ``hopper`` prefill against the ``ref`` prefill, the
+   discrete policy at 8 tokens, and the ``hopper`` prefill against the
+   ``ref`` prefill again with the weights widened to f32;
+7. a ``kernels`` JSON line (kernels of both paths) and a ``port_status``
+   JSON line (every TPU kernel of the reference and whether it is ported).
 
 The last line is ``{"ok": true, "device": {...}}``.  Nothing is caught: a
 failed phase ends the run with a non-zero exit code and no result line.
 Without CUDA, or outside a checkout, it exits non-zero at once.
 """
 import argparse
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -43,6 +51,21 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 KERNEL_TOL = dict(rtol=3e-4, atol=1e-4)           # K1-K3 vs plain
+SCAN_TOL = dict(rtol=2e-4, atol=2e-4)    # K5 vs plain (tests/test_kernels.py)
+# hopper vs ref prefill of the full model, relative to the reference's
+# largest magnitude: the two scans differ by f32 rounding (~1e-6), but each
+# layer rounds its output to bf16 (8 bits), so a one-ulp flip reaches the
+# next layer and 32 layers of random weights amplify it (3-4 % on logits
+# and S at d_model=256 on a CPU, 6-9 % at full width on an H100)
+PREFILL_TOL = 0.2
+# layer 0 of that prefill: both scans get the same r, k, v, log w, so only
+# their f32 rounding differs (~3e-6 of max|S| at d_model=256 on a CPU)
+SCAN_ON_MODEL_TOL = 1e-4
+# the same prefill with the weights widened to f32 and f32 activations:
+# f32 rounding of the decays' running sums amplified by 32 layers
+# (2e-5 of max|S| and of max|logit| at d_model=256 on a CPU)
+F32_PREFILL_TOL = 1e-4
+SERVE = dict(batch=4, prompt_len=1024, gen=32, gen_discrete=8)
 FIELD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
              torch.bfloat16: dict(rtol=2e-2, atol=1e-2)}
 STEP_ENVELOPE = 1e-5          # |err| <= 1e-5 * max(1, max|field|)
@@ -57,6 +80,7 @@ REPLACES = {
     "fused_xpay": "src/repro/kernels/fused_field/kernel.py:88",
     "fused_mul": "src/repro/kernels/fused_field/kernel.py:92",
     "fused_axpbypz": "src/repro/kernels/fused_field/kernel.py:96",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:71",
 }
 
 
@@ -92,6 +116,44 @@ def bound(nbytes, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def scan_work(B, T, H, hd, rkv_bytes):
+    """(bytes, operations) of the RWKV6 scan from a given state: r, k, v
+    read once, log w, S_in and u once (f32), out and S_out written once
+    (f32).  Operations: the fewest that give the same out and S_out, over
+    the sequential recurrence and the chunked form at every chunk length
+    of 1..64 rows (the last chunk ragged), each exp counted as one."""
+    n = B * T * H * hd
+    nbytes = 3 * rkv_bytes * n + 4 * n + 4 * n + 2 * 4 * B * H * hd * hd \
+        + 4 * H * hd
+    # per token: r @ S (2 hd^2), S <- exp(w) S + k^T v (3 hd^2 + hd), the
+    # u bonus r.u.k (3 hd) and its v term (2 hd)
+    recurrence = T * (5 * hd * hd + 6 * hd)
+
+    def chunked(C):
+        ops = 0
+        for t0 in range(0, T, C):
+            L = min(C, T - t0)
+            ops += (L * hd                        # running sum of log w
+                    + L * (L - 1) // 2 * hd * 5   # pairwise decays into att
+                    + L * hd * 3                  # u bonus on the diagonal
+                    + L * hd * 5                  # r*exp(la_prev), k*exp(..)
+                    + L * hd * hd * 2             # inter = rA @ S
+                    + L * (L + 1) // 2 * hd * 2   # att @ v
+                    + hd * hd * (2 + 2 * L) + hd)  # S update
+        return ops
+    ops = min(recurrence, *(chunked(C) for C in range(1, 65)))
+    return nbytes, ops * B * H
+
+
+def rel_errs(logits_a, caches_a, logits_b, caches_b):
+    """max |a-b| / max |b| of every layer's S, and of the logits."""
+    s_rel = [((a["S"] - b["S"]).abs().max() / b["S"].abs().max()).item()
+             for a, b in zip(caches_a, caches_b)]
+    l_rel = ((logits_a.float() - logits_b.float()).abs().max()
+             / logits_b.float().abs().max()).item()
+    return s_rel, l_rel
+
+
 def envelope_err(a, b):
     """(max |a-b|, allowed) of one field under the step envelope."""
     a = a.float().cuda()
@@ -117,8 +179,16 @@ def main(argv=None):
     from repro_torch.core.regions import (DiscretePolicy, Executor,
                                           StaticSelector, UnifiedPolicy)
     from repro_torch.kernels import build
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.ledger import Ledger
+    from repro_torch.core.umem import (MemSpace, tree_leaves, tree_map,
+                                      tree_place)
     from repro_torch.kernels.fused_field import kernel as FK, ref as FR
+    from repro_torch.kernels.rwkv6_scan import kernel as RK, ref as RR
     from repro_torch.kernels.stencil_spmv import kernel as SK, ref as SR
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import param_count
 
     # -- 1. the card ----------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -130,6 +200,8 @@ def main(argv=None):
     print(smi.splitlines()[0])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False    # f32 comparisons below
+    torch.backends.cudnn.allow_tf32 = False
 
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -225,14 +297,63 @@ def main(argv=None):
                         bound_by=bound_by, library_ms=lib_ms)
             print(line)
 
-    # -- 4. main path: unified + hopper at 200^3 ------------------------
+    # K5 at the serve path's prefill shape and at a ragged one (T not a
+    # multiple of the kernel's 64-row chunk, hd=64, steep decays down to the
+    # model's floor of log w = -12, which underflow inside a chunk).  In
+    # bf16 both sides widen the same r/k/v to f32 exactly, so the
+    # tolerance is the f32 one.
+    scfg = get_config("rwkv6-7b")
+    SB, SP = SERVE["batch"], SERVE["prompt_len"]
+    for dims in ((SB, SP, scfg.n_heads, scfg.hd), (1, 200, 3, 64)):
+        B, Tn, H, hd = dims
+        r32, k32, v32 = (0.5 * torch.randn(dims, generator=g, device=dev)
+                         for _ in range(3))
+        if Tn == SP:
+            logw = -2 * torch.rand(dims, generator=g, device=dev) - 0.01
+        else:
+            logw = -torch.exp(torch.rand(dims, generator=g, device=dev) * 11
+                              - 8).clamp(max=12.0)
+        u = 0.3 * torch.randn(H, hd, generator=g, device=dev)
+        S0 = 0.2 * torch.randn(B, H, hd, hd, generator=g, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            kargs = (r32.to(dt), k32.to(dt), v32.to(dt), logw, u, S0)
+            out, S = RK.rwkv6_scan(*kargs)
+            want_out, want_S = RR.rwkv6_scan(*kargs)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, want_out, **SCAN_TOL)
+            torch.testing.assert_close(S, want_S, **SCAN_TOL)
+            err = max((out - want_out).abs().max().item(),
+                      (S - want_S).abs().max().item())
+            line = (f"[kernel] rwkv6_scan {str(dt)[6:]} "
+                    f"{'x'.join(map(str, dims))} max_abs_err {err:.3e} ok")
+            if Tn == SP:
+                ms = time_ms(lambda: RK.rwkv6_scan(*kargs))
+                plain_ms = time_ms(lambda: RR.rwkv6_scan(*kargs), reps=5,
+                                   warmup=1)
+                bound_ms, bound_by = bound(*scan_work(
+                    B, Tn, H, hd, kargs[0].element_size()))
+                line += (f" | ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                         f"- bound_ms {bound_ms:.4f} ({bound_by}) "
+                         f"share_of_bound {bound_ms / ms:.3f}")
+                if dt == torch.bfloat16:        # what the serve path feeds
+                    records["rwkv6_scan"] = dict(
+                        name="rwkv6_scan", route="cuda",
+                        source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                        replaces=REPLACES["rwkv6_scan"], launches=0,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None)
+            print(line)
+    del r32, k32, v32, logw, u, S0, kargs, out, S, want_out, want_S
+
+    # -- 4. CFD path: unified + hopper at 200^3 -------------------------
     def reset_launches():
-        for table in (SK.LAUNCHES, FK.LAUNCHES):
+        for table in (SK.LAUNCHES, FK.LAUNCHES, RK.LAUNCHES):
             for k in table:
                 table[k] = 0
 
     def launches():
-        return {**SK.LAUNCHES, **FK.LAUNCHES}
+        return {**SK.LAUNCHES, **FK.LAUNCHES, **RK.LAUNCHES}
 
     grid = Grid((N, N, N))
     cfg = SimpleConfig(grid, nu=0.1, inner_max=25)
@@ -321,8 +442,162 @@ def main(argv=None):
           f"{json.dumps(res['discrete'][2].ex.policy.stager.host_pool.stats.as_dict())}; "
           f"launches {json.dumps(res['discrete'][3])}")
 
-    # -- 6. the kernels of the path, and the port's status --------------
-    print(json.dumps({"kernels": [records[k] for k in on_path]}))
+    # -- 6. serve rwkv6-7b at full width -------------------------------
+    del app, a, res, outs, st, s1, policy
+    SG, SGD = SERVE["gen"], SERVE["gen_discrete"]
+    gs = torch.Generator(device=dev).manual_seed(args.seed)
+    before_serve = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = T.init(gs, scfg, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(params))
+    prompts = torch.randint(0, scfg.vocab, (SB, SP), generator=gs,
+                            device=dev, dtype=torch.int32)
+    batch = {"tokens": prompts}
+    print(f"[serve] rwkv6-7b: {scfg.n_layers} layers, d_model "
+          f"{scfg.d_model}, {scfg.n_heads}x{scfg.hd} heads, d_ff {scfg.d_ff}, "
+          f"vocab {scfg.vocab}, {scfg.compute_dtype}; "
+          f"{param_count(T.param_specs(scfg))} params, {w_bytes / 1e9:.2f} GB"
+          f" on the card, random init in {t_init:.1f} s; "
+          f"{before_serve / 1e9:.2f} GB allocated before the serve phase")
+
+    def serve_programs(policy, gen_n):
+        """Executor, regions and both captured programs, each replayed
+        once as a warm-up (capture itself runs the ``ref`` variants)."""
+        ex = Executor(policy, Ledger("serve"))
+        regions = SV.make_serve_regions(scfg, params, ledger=ex.ledger)
+        pprog = SV.capture_prefill_program(regions, batch,
+                                           T.init_cache(scfg, SB, dev))
+        tok, cache = pprog.replay(ex, batch, T.init_cache(scfg, SB, dev))
+        # capture runs the regions eagerly: its examples live on the card
+        dprog = SV.capture_decode_program(
+            regions, SP, gen_n, *tree_place((tok, cache), MemSpace.DEVICE,
+                                            dev))
+        dprog.replay(ex, tok, cache)
+        ex.ledger.reset_timings()
+        return ex, pprog, dprog
+
+    def serve_run(ex, pprog, dprog):
+        """One request batch: (tokens [B, gen] on the host, prefill s,
+        decode s)."""
+        t0 = time.perf_counter()
+        tok, cache = pprog.replay(ex, batch, T.init_cache(scfg, SB, dev))
+        t1 = time.perf_counter()
+        toks = dprog.replay(ex, tok, cache)
+        t2 = time.perf_counter()
+        return torch.stack([t.cpu() for t in toks], 1), t1 - t0, t2 - t1
+
+    with_weights = torch.cuda.memory_allocated()
+    ex, pprog, dprog = serve_programs(
+        UnifiedPolicy(selector=StaticSelector("hopper")), SG)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    seq, t_pre, t_dec = serve_run(ex, pprog, dprog)
+    serve_counts = launches()
+    peak = torch.cuda.max_memory_allocated()
+    impl_prefill = ex.ledger.regions["PREFILL"].impl_counts
+    rows = ex.ledger.regions.values()
+    print(f"[serve] unified/hopper {SB}x{SP} prompt, {SG} tokens: prefill "
+          f"{t_pre * 1e3:.1f} ms ({SB * SP / t_pre:.0f} prompt tok/s); decode "
+          f"{SG - 1} steps in {t_dec * 1e3:.1f} ms "
+          f"({SB * (SG - 1) / t_dec:.1f} tok/s, "
+          f"{t_dec / (SG - 1) * 1e3:.2f} ms/step); peak device memory "
+          f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held before the run, "
+          f"{(held - with_weights) / 1e9:.2f} GB of it by the captured "
+          f"programs); "
+          f"launches {json.dumps(serve_counts)}; PREFILL impl_counts "
+          f"{impl_prefill}; region compute_s: " + "; ".join(
+              f"{r.name} {r.compute_s:.4f} ({r.calls} calls)" for r in rows))
+    if serve_counts["rwkv6_scan"] != scfg.n_layers:
+        raise AssertionError(f"K5 launched {serve_counts['rwkv6_scan']} "
+                             f"times in one prefill, not once per layer "
+                             f"({scfg.n_layers})")
+    if impl_prefill != {"hopper": 1}:
+        raise AssertionError(f"PREFILL ran {impl_prefill}, not hopper")
+    records["rwkv6_scan"]["launches"] = serve_counts["rwkv6_scan"]
+
+    # the uncaptured path: same tokens; hopper prefill against ref prefill
+    prefill_h, decode, make_cache = SV.build_server(scfg, SB, dev,
+                                                    rwkv_impl="hopper")
+    prefill_r, _, _ = SV.build_server(scfg, SB, dev)
+    pre_s = {}
+    for impl, step in (("hopper", prefill_h), ("ref", prefill_r)):
+        t0 = time.perf_counter()
+        pre_s[impl] = (*step(params, batch, make_cache()),)
+        torch.cuda.synchronize()
+        pre_s[impl] += (time.perf_counter() - t0,)
+    (lh, ch, th), (lr, cr, tr) = pre_s["hopper"], pre_s["ref"]
+    toks_j, cache_end = SV.decode_stream(decode, params, SV.greedy(lh), ch,
+                                         SP, SG)
+    if not torch.equal(seq, torch.stack([t.cpu() for t in toks_j], 1)):
+        raise AssertionError("replayed tokens differ from the uncaptured "
+                             "path's")
+    ld, _ = decode(params, toks_j[-1], cache_end, SP + SG - 1)
+    for what, lg in (("hopper prefill", lh), ("ref prefill", lr),
+                     ("decode", ld)):
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"{what} logits are not finite")
+    s_rel, l_rel = rel_errs(lh, ch, lr, cr)
+    agree = (SV.greedy(lh) == SV.greedy(lr)).float().mean().item()
+    print(f"[serve] uncaptured path: tokens equal to the replay's; hopper "
+          f"prefill {th * 1e3:.1f} ms vs ref (rwkv_chunk) {tr * 1e3:.1f} ms; "
+          f"max |dS| / max|S| over layers {max(s_rel):.3e} (layer 0, whose "
+          f"scan inputs are equal on both sides: {s_rel[0]:.3e}, limit "
+          f"{SCAN_ON_MODEL_TOL}), max |dlogit| / max|logit| {l_rel:.3e} "
+          f"(limit {PREFILL_TOL}); first-token agreement {agree:.2f}; "
+          f"logits finite")
+    if not s_rel[0] <= SCAN_ON_MODEL_TOL:
+        raise AssertionError("K5 leaves rwkv_chunk on layer 0's inputs")
+    if not (max(s_rel) <= PREFILL_TOL and l_rel <= PREFILL_TOL):
+        raise AssertionError("hopper prefill leaves the ref envelope")
+    del lh, ch, lr, cr, pre_s, toks_j, cache_end, ld
+
+    # the discrete policy: every offloaded region stages the state
+    exd, pprog_d, dprog_d = serve_programs(
+        DiscretePolicy(selector=StaticSelector("hopper")), SGD)
+    seq_d, td_pre, td_dec = serve_run(exd, pprog_d, dprog_d)
+    if not torch.equal(seq_d, seq[:, :SGD]):
+        raise AssertionError("discrete tokens differ from the unified run's")
+    rep_sd = exd.report()
+    staged_sd = sum(r.staging_bytes for r in exd.ledger.regions.values())
+    print(f"[serve] discrete/hopper {SGD} tokens: tokens equal to the "
+          f"unified run's; prefill {td_pre * 1e3:.1f} ms; decode "
+          f"{SGD - 1} steps in {td_dec * 1e3:.1f} ms "
+          f"({SB * (SGD - 1) / td_dec:.1f} tok/s); staging_fraction "
+          f"{rep_sd['staging_fraction']:.4f} ({rep_sd['staging_s']:.4f} s, "
+          f"{staged_sd / 1e9:.3f} GB)")
+    del exd, pprog_d, dprog_d, ex, pprog, dprog
+
+    # the same weights widened to f32, with f32 activations: hopper vs ref
+    # prefill, so that only f32 rounding separates them
+    cfg32 = dataclasses.replace(scfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                        params)
+    del params
+    pre32 = {}
+    for impl in ("hopper", None):
+        step, _, mk = SV.build_server(cfg32, SB, dev, rwkv_impl=impl)
+        t0 = time.perf_counter()
+        pre32[impl] = (*step(params32, batch, mk()),)
+        torch.cuda.synchronize()
+        pre32[impl] += (time.perf_counter() - t0,)
+    (lh, ch, th), (lr, cr, tr) = pre32["hopper"], pre32[None]
+    s_rel, l_rel = rel_errs(lh, ch, lr, cr)
+    print(f"[serve] f32 weights and activations: hopper prefill "
+          f"{th * 1e3:.1f} ms vs ref {tr * 1e3:.1f} ms; max |dS| / max|S| "
+          f"over layers {max(s_rel):.3e} (layer 0: {s_rel[0]:.3e}), max "
+          f"|dlogit| / max|logit| {l_rel:.3e} (limit {F32_PREFILL_TOL})")
+    if not (max(s_rel) <= F32_PREFILL_TOL and l_rel <= F32_PREFILL_TOL):
+        raise AssertionError("f32 hopper prefill leaves the ref envelope")
+    del params32, pre32, lh, ch, lr, cr
+
+    # -- 7. the kernels of both paths, and the port's status ------------
+    print(json.dumps({"kernels": [records[k]
+                                  for k in on_path + ("rwkv6_scan",)]}))
     status = [
         {"tpu_kernel": f"K{i + 1}", "replaces": REPLACES[k], "status": "ported",
          "variant": "hopper", "port": k, "launches_main_path": counts[k]}
@@ -332,9 +607,10 @@ def main(argv=None):
         {"tpu_kernel": "K4", "replaces": REPLACES[k], "status": "ported",
          "variant": "hopper", "port": k, "launches_main_path": counts[k]}
         for k in ("fused_axpy", "fused_xpay", "fused_mul", "fused_axpbypz")]
-    status.append({"tpu_kernel": "K5",
-                   "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:71",
-                   "status": "not yet"})
+    status.append({"tpu_kernel": "K5", "replaces": REPLACES["rwkv6_scan"],
+                   "status": "ported", "variant": "hopper",
+                   "port": "rwkv6_scan",
+                   "launches_serve_path": serve_counts["rwkv6_scan"]})
     print(json.dumps({"port_status": status}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,29 @@
+"""Registry of the architectures the port runs.
+
+Each ``repro_torch/configs/<id>.py`` exposes ``CONFIG``; ``--arch <id>``
+resolves through :func:`get_config`.  Only archs whose mixers the port
+runs are here (``rwkv6-7b``); every other arch of the JAX package raises
+``NotImplementedError`` until its mixers are ported (ROADMAP A.7).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+
+ARCH_IDS = ("rwkv6_7b",)
+
+_cache: Dict[str, ModelConfig] = {}
+
+
+def get_config(arch: str) -> ModelConfig:
+    key = arch.replace("-", "_").replace(".", "_")
+    if key not in ARCH_IDS:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported yet (ROADMAP A.7: its mixers wait); "
+            f"the port runs: {', '.join(a.replace('_', '-') for a in ARCH_IDS)}")
+    if key not in _cache:
+        _cache[key] = importlib.import_module(
+            f"repro_torch.configs.{key}").CONFIG
+    return _cache[key]

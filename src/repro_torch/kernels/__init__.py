@@ -10,8 +10,8 @@ Each subpackage ``<name>/`` is one compute hot-spot:
 
 The packages do not wire themselves into application code: regions
 register the wrappers as their ``hopper`` variant (``repro_torch.cfd.dia``
-/ ``precond`` / ``fields`` / ``solvers``) and the executing policy's
-selector picks one per call.
+/ ``precond`` / ``fields`` / ``solvers``, ``repro_torch.models.rwkv6``) and
+the executing policy's selector picks one per call.
 
 Contract: every op carries a ``ref`` entry in :func:`variant_tables`, and
 every live kernel-backed region carries ``ref`` plus a kernel variant
@@ -28,12 +28,13 @@ REQUIRED_VARIANT = "ref"
 KERNEL_VARIANT = "hopper"
 
 #: kernel subpackages participating in the variant contract
-PACKAGES = ("stencil_spmv", "fused_field")
+PACKAGES = ("stencil_spmv", "fused_field", "rwkv6_scan")
 
 
 def variant_tables() -> Dict[str, Dict[str, Dict[str, Callable]]]:
     """``{package: {op: {variant: callable}}}`` for every kernel package."""
     from repro_torch.kernels.fused_field import kernel as ffk, ref as ffr
+    from repro_torch.kernels.rwkv6_scan import kernel as rwk, ref as rwr
     from repro_torch.kernels.stencil_spmv import kernel as ssk, ref as ssr
 
     return {
@@ -48,6 +49,9 @@ def variant_tables() -> Dict[str, Dict[str, Dict[str, Callable]]]:
             "axpbypz": {"ref": ffr.fused_axpbypz,
                         "hopper": ffk.fused_axpbypz},
         },
+        "rwkv6_scan": {
+            "scan": {"ref": rwr.rwkv6_scan, "hopper": rwk.rwkv6_scan},
+        },
     }
 
 
@@ -57,9 +61,10 @@ def _live_kernel_regions():
     from repro_torch.cfd.fields import make_field_ops
     from repro_torch.cfd.precond import RB_DILU
     from repro_torch.cfd.solvers import make_solver_regions
+    from repro_torch.models.rwkv6 import RWKV6_SCAN
     ops = make_field_ops()
     solver = make_solver_regions()
-    return [AMUL, RB_DILU,
+    return [AMUL, RB_DILU, RWKV6_SCAN,
             solver.amul, solver.precond, solver.saxpy, solver.update_x,
             ops.axpy, ops.xpay, ops.axpbypz, ops.fmul]
 

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA C++ kernels.
 
-Every ``csrc/*.cu`` is compiled by ONE ``nvcc`` call for ``sm_90a`` into a
-shared library with a plain C interface, at first use, under ``build/`` at
-the root of the checkout; the library's name carries a hash of the sources
-and flags, so a stale build is never loaded.  It is bound with ``ctypes``:
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``, all
+started together, and the objects are linked into ONE shared library with
+a plain C interface, at first use, under ``build/`` at the root of the
+checkout; the library's name carries a hash of the sources and flags, so a
+stale build is never loaded.  It is bound with ``ctypes``:
 every pointer and the stream are ``c_void_p``, every size ``c_int``, and
 every entry returns ``cudaGetLastError()``, which :func:`launch` turns into
 an exception.  Nothing here runs at import time.
@@ -25,7 +26,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: C entry -> (number of pointer args, number of int args); the stream is
 #: the last argument of every entry
@@ -33,6 +34,8 @@ ENTRIES = {
     "stencil_spmv_f32": (4, 3),
     "rb_dilu_forward_f32": (5, 3),
     "rb_dilu_backward_f32": (5, 3),
+    "rwkv6_scan_f32": (8, 4),
+    "rwkv6_scan_bf16": (8, 4),
 }
 
 _lock = threading.Lock()
@@ -63,21 +66,34 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source in parallel, then one link."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)            # atomic: a concurrent build never sees
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [pathlib.Path(tmpdir) / f"{src.stem}.o" for src in sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [f"{src.name} ({p.returncode})" for src, p in
+                  zip(sources(), procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{build_log}")
+        tmp = pathlib.Path(tmpdir) / out.name
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, out)        # atomic: a concurrent build never sees
     return out                      # a half-written library
 
 

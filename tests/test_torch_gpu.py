@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU (marker ``gpu``): each
-hand-written kernel against its plain PyTorch version on the card, and a
-small SIMPLE step through the kernels against the ``ref`` step.  They skip
+hand-written kernel against its plain PyTorch version on the card, a
+small SIMPLE step through the kernels against the ``ref`` step, and a
+small serve run through the RWKV6 scan kernel.  They skip
 where CUDA is absent; on a machine with a card run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py
@@ -84,3 +85,116 @@ def test_simple_step_hopper_matches_ref_on_card(cuda):
         a, b = getattr(out["ref"], f), getattr(out["hopper"], f)
         assert (a - b).abs().max().item() <= \
             1e-5 * max(1.0, a.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dims", [(2, 128, 2, 16), (1, 64, 3, 8),
+                                  (2, 96, 1, 32), (1, 192, 3, 64),
+                                  (2, 100, 2, 64), (1, 1, 1, 64)])
+def test_rwkv6_scan_kernel_matches_plain(cuda, dims, dtype):
+    """K5 against the sequential oracle from a nonzero state, within the
+    reference's kernel tolerance (2e-4); bf16 r/k/v are widened to f32
+    exactly on both sides, so the tolerance is the same.  T=100 and T=1
+    leave a ragged last chunk."""
+    from repro_torch.kernels.rwkv6_scan import kernel as K, ref as R
+    B, T, H, hd = dims
+    g = torch.Generator(device=cuda).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+
+    r, k, v = (0.5 * randn(B, T, H, hd)).to(dtype), \
+        (0.5 * randn(B, T, H, hd)).to(dtype), (0.5 * randn(B, T, H, hd)).to(dtype)
+    logw = -2 * torch.rand((B, T, H, hd), generator=g, device=cuda) - 0.01
+    u, S0 = 0.3 * randn(H, hd), 0.2 * randn(B, H, hd, hd)
+    before = K.LAUNCHES["rwkv6_scan"]
+    out, S = K.rwkv6_scan(r, k, v, logw, u, S0)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rwkv6_scan"] == before + 1
+    want_out, want_S = R.rwkv6_scan(r, k, v, logw, u, S0)
+    torch.testing.assert_close(out, want_out, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(S, want_S, rtol=2e-4, atol=2e-4)
+
+
+def test_rwkv6_scan_kernel_steep_decay_stays_finite(cuda):
+    """Decays down to the model's floor (log w = -12) underflow inside a
+    chunk; the kernel must give 0 there, never NaN."""
+    from repro_torch.kernels.rwkv6_scan import kernel as K, ref as R
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = (2, 256, 4, 64)
+    r, k, v = (torch.randn(shape, generator=g, device=cuda) for _ in range(3))
+    logw = -torch.exp(torch.rand(shape, generator=g, device=cuda) * 11 - 8)
+    logw = logw.clamp(min=-12.0)
+    u = torch.randn(4, 64, generator=g, device=cuda)
+    out, S = K.rwkv6_scan(r, k, v, logw, u)
+    want_out, want_S = R.rwkv6_scan(r, k, v, logw, u)
+    assert torch.isfinite(out).all() and torch.isfinite(S).all()
+    torch.testing.assert_close(out, want_out, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(S, want_S, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("bad", ["hd_above_64", "contiguity", "mixed_device"])
+def test_rwkv6_scan_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
+    from repro_torch.kernels.rwkv6_scan import kernel as K
+    hd = 80 if bad == "hd_above_64" else 16
+    r, k, v = (torch.rand(1, 8, 2, hd, device=cuda) for _ in range(3))
+    logw, u = -torch.rand(1, 8, 2, hd, device=cuda), torch.rand(2, hd, device=cuda)
+    if bad == "contiguity":
+        r = r.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "mixed_device":
+        u = u.cpu()
+    before = K.LAUNCHES["rwkv6_scan"]
+    with pytest.raises(ValueError):
+        K.rwkv6_scan(r, k, v, logw, u)
+    assert K.LAUNCHES["rwkv6_scan"] == before
+
+
+def test_serve_reduced_on_card_runs_the_kernel(cuda):
+    """The serve entry point on the card (reduced rwkv6-7b, hd=16): the
+    replayed tokens equal the uncaptured path's (asserted inside main),
+    prefill launched K5 once per layer, and the discrete policy, whose
+    regions hand back host pages, gives the same tokens."""
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.rwkv6_scan import kernel as K
+    from repro_torch.launch.serve import main
+    n_layers = reduced(get_config("rwkv6-7b")).n_layers
+    before = K.LAUNCHES["rwkv6_scan"]
+    seq = main(["--reduced", "--prompt-len", "96", "--gen", "4"])
+    assert seq.shape == (4, 4)
+    assert K.LAUNCHES["rwkv6_scan"] - before == 2 * n_layers   # replay + oracle
+    before = K.LAUNCHES["rwkv6_scan"]
+    seq_d = main(["--reduced", "--prompt-len", "96", "--gen", "4",
+                  "--policy", "discrete"])
+    assert torch.equal(seq_d, seq)
+    assert K.LAUNCHES["rwkv6_scan"] - before == n_layers
+
+
+def test_prefill_f32_through_the_kernel_matches_ref_on_card(cuda):
+    """rwkv6-7b at reduced width (32 layers, 4 heads of hd=64) in f32: the
+    prefill through K5 against the prefill through ``rwkv_chunk``.  Every
+    layer's S and the logits lie within 1e-4 of their largest magnitude:
+    the two scans differ by f32 rounding of the decays' running sums, which
+    32 layers amplify (2e-5 at this size with the plain scan on a CPU)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.rwkv6_scan import kernel as K
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(
+        get_config("rwkv6-7b"), d_model=256, n_heads=4, head_dim=64,
+        d_ff=512, vocab=2048, param_dtype="float32", compute_dtype="float32")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = T.init(g, cfg, cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 256), generator=g,
+                                     device=cuda, dtype=torch.int32)}
+    out = {}
+    before = K.LAUNCHES["rwkv6_scan"]
+    for impl in ("hopper", None):
+        step, _, make_cache = SV.build_server(cfg, 2, cuda, rwkv_impl=impl)
+        out[impl] = step(params, batch, make_cache())
+    assert K.LAUNCHES["rwkv6_scan"] - before == cfg.n_layers
+    (lh, ch), (lr, cr) = out["hopper"], out[None]
+    for a, b in zip(ch, cr):
+        assert (a["S"] - b["S"]).abs().max() <= 1e-4 * b["S"].abs().max()
+    assert (lh - lr).abs().max() <= 1e-4 * lr.abs().max()

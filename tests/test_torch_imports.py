@@ -26,7 +26,17 @@ def test_walk_finds_the_slice():
     for name in ("repro_torch.core.regions", "repro_torch.cfd.simple",
                  "repro_torch.cfd.__main__", "repro_torch.kernels.build",
                  "repro_torch.kernels.stencil_spmv.kernel",
-                 "repro_torch.kernels.fused_field.kernel"):
+                 "repro_torch.kernels.fused_field.kernel",
+                 "repro_torch.configs.base", "repro_torch.configs.reduced",
+                 "repro_torch.configs.registry",
+                 "repro_torch.configs.rwkv6_7b",
+                 "repro_torch.models.params", "repro_torch.models.layers",
+                 "repro_torch.models.rwkv6", "repro_torch.models.transformer",
+                 "repro_torch.models.convert", "repro_torch.core.program",
+                 "repro_torch.kernels.rwkv6_scan.kernel",
+                 "repro_torch.kernels.rwkv6_scan.ref",
+                 "repro_torch.train.step", "repro_torch.launch.policy",
+                 "repro_torch.launch.serve"):
         assert name in MODULES
 
 
@@ -83,6 +93,12 @@ def test_cli_runs_on_cpu_when_asked(capsys):
                 "--policy", "discrete"])
     assert out["device"] == "cpu" and out["staging_fraction"] > 0
     assert '"impl": "hopper"' in capsys.readouterr().out
+
+
+def test_serve_cli_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--reduced", "--prompt-len", "8", "--gen", "2"])
 
 
 def test_discrete_policy_raises_without_cuda(no_cuda):

@@ -124,7 +124,8 @@ def test_cpu_calls_do_not_count_as_launches():
 
 
 def test_variant_contract():
-    assert check_ref_variants() == {"stencil_spmv": 2, "fused_field": 4}
+    assert check_ref_variants() == {"stencil_spmv": 2, "fused_field": 4,
+                                    "rwkv6_scan": 1}
     for ops in variant_tables().values():
         for table in ops.values():
             assert set(table) == {"ref", "hopper"}
