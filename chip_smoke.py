@@ -8,10 +8,11 @@ Run from the root of a checkout.  Phases, each printing its own lines:
 1. the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
    power limit);
 2. build: one nvcc per ``src/repro_torch/kernels/csrc/*.cu``, all started
-   together, for sm_90a; Triton compiles the fused-field kernel;
+   together, for sm_90a; Triton compiles the fused-field kernel; the count
+   of tensor-core instructions (HMMA) in K5's SASS, which must not be 0;
 3. kernels: every hand-written kernel against its plain PyTorch version at
    its path's shape (200^3 for K1-K4; B=4, T=1024, H=64, hd=64 for the
-   RWKV6 scan K5) and at a ragged one, then timed with CUDA events beside
+   RWKV6 scan K5) and at ragged ones, then timed with CUDA events beside
    its plain version, its library call where one exists, and its bound;
 4. the CFD path: SIMPLE steps of the 3-D lid-driven cavity at 200^3
    (8.0M cells, size M of the OpenFOAM HPC Technical Committee's
@@ -37,6 +38,8 @@ import argparse
 import dataclasses
 import json
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -106,6 +109,23 @@ def time_ms(fn, reps=25, warmup=3):
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def sass_counts(lib, opcode):
+    """Instructions of one opcode in each kernel function of a built
+    library, read from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts.setdefault(fn, 0)
+        elif fn is not None and re.search(rf"\b{opcode}\b", ln):
+            counts[fn] += 1
+    return counts
 
 
 def bound(nbytes, flops):
@@ -220,6 +240,14 @@ def main(argv=None):
     t_triton = time.perf_counter() - t0
     print(f"[build] nvcc {t_nvcc:.2f} s ({build.library_path().name}); "
           f"triton {t_triton:.2f} s; ptxas: {' | '.join(ptxas) or 'cached'}")
+    hmma = {fn: n for fn, n in sass_counts(build.library_path(),
+                                           "HMMA").items()
+            if "rwkv6_scan" in fn}
+    print(f"[build] HMMA instructions in K5's SASS (cuobjdump -sass): "
+          f"{json.dumps(hmma)}")
+    if len(hmma) != 2 or min(hmma.values()) <= 0:
+        raise AssertionError("K5's f32 and bf16 kernels must both run on the "
+                             f"tensor cores (HMMA): {hmma}")
 
     # -- 3. kernels vs plain, then timed --------------------------------
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -297,14 +325,15 @@ def main(argv=None):
                         bound_by=bound_by, library_ms=lib_ms)
             print(line)
 
-    # K5 at the serve path's prefill shape and at a ragged one (T not a
-    # multiple of the kernel's 64-row chunk, hd=64, steep decays down to the
-    # model's floor of log w = -12, which underflow inside a chunk).  In
-    # bf16 both sides widen the same r/k/v to f32 exactly, so the
-    # tolerance is the f32 one.
+    # K5 at the serve path's prefill shape and at two ragged ones (T not a
+    # multiple of the kernel's 64-row chunk, the last chunk of 8 and of 40
+    # rows, hd=64, steep decays down to the model's floor of log w = -12,
+    # which underflow inside a chunk).  In bf16 both sides widen the same
+    # r/k/v to f32 exactly, so the tolerance is the f32 one.
     scfg = get_config("rwkv6-7b")
     SB, SP = SERVE["batch"], SERVE["prompt_len"]
-    for dims in ((SB, SP, scfg.n_heads, scfg.hd), (1, 200, 3, 64)):
+    for dims in ((SB, SP, scfg.n_heads, scfg.hd), (1, 200, 3, 64),
+                 (2, 1000, 4, 64)):
         B, Tn, H, hd = dims
         r32, k32, v32 = (0.5 * torch.randn(dims, generator=g, device=dev)
                          for _ in range(3))

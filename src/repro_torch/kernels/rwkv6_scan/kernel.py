@@ -1,8 +1,9 @@
 """Wrapper of the hand-written CUDA RWKV6 scan (``csrc/rwkv6_scan.cu``, K5).
 
 Replaces ``src/repro/kernels/rwkv6_scan/kernel.py:71`` of the JAX package.
-Bound by operations (the pairwise decays are one exp each); see the note
-in the CUDA source for the design.  Unlike the TPU kernel it starts from
+Its products run on the tensor cores in 3xTF32 (``ref.rwkv6_subchunk`` is
+the plain twin of that arithmetic); see the note in the CUDA source for
+the design.  Unlike the TPU kernel it starts from
 the caller's state ``S_in`` (zero when not given), so the ``hopper``
 variant of ``RWKV6_SCAN`` needs no superposition pass afterwards.
 

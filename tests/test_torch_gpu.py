@@ -90,12 +90,16 @@ def test_simple_step_hopper_matches_ref_on_card(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dims", [(2, 128, 2, 16), (1, 64, 3, 8),
                                   (2, 96, 1, 32), (1, 192, 3, 64),
-                                  (2, 100, 2, 64), (1, 1, 1, 64)])
+                                  (2, 100, 2, 64), (1, 1, 1, 64),
+                                  (2, 1000, 4, 64), (1, 37, 2, 32),
+                                  (1, 70, 3, 12)])
 def test_rwkv6_scan_kernel_matches_plain(cuda, dims, dtype):
     """K5 against the sequential oracle from a nonzero state, within the
     reference's kernel tolerance (2e-4); bf16 r/k/v are widened to f32
     exactly on both sides, so the tolerance is the same.  T=100 and T=1
-    leave a ragged last chunk."""
+    leave a ragged last chunk; T=1000 and T=37 one that ends inside a
+    16-row sub-chunk (40 and 37 rows).  hd=12 rows of bf16 do not start
+    on 16 bytes, so the kernel loads them one element at a time."""
     from repro_torch.kernels.rwkv6_scan import kernel as K, ref as R
     B, T, H, hd = dims
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -131,6 +135,27 @@ def test_rwkv6_scan_kernel_steep_decay_stays_finite(cuda):
     assert torch.isfinite(out).all() and torch.isfinite(S).all()
     torch.testing.assert_close(out, want_out, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(S, want_S, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dims", [(2, 1000, 4, 64), (1, 37, 2, 32)])
+def test_rwkv6_scan_kernel_matches_cpu_twin(cuda, dims):
+    """K5 against ``ref.rwkv6_subchunk``, the plain twin of its
+    arithmetic (sub-chunk-factored decays, 3xTF32 operands), run on the
+    CPU on the same inputs, with steep decays down to the -12 floor."""
+    from repro_torch.kernels.rwkv6_scan import kernel as K, ref as R
+    B, T, H, hd = dims
+    g = torch.Generator(device=cuda).manual_seed(4)
+    r, k, v = (0.5 * torch.randn(dims, generator=g, device=cuda)
+               for _ in range(3))
+    logw = -torch.exp(torch.rand(dims, generator=g, device=cuda) * 11 - 8)
+    logw = logw.clamp(min=-12.0)
+    u = 0.3 * torch.randn(H, hd, generator=g, device=cuda)
+    S0 = 0.2 * torch.randn(B, H, hd, hd, generator=g, device=cuda)
+    out, S = K.rwkv6_scan(r, k, v, logw, u, S0)
+    want_out, want_S = R.rwkv6_subchunk(
+        *(t.cpu() for t in (r, k, v, logw, u, S0)))
+    torch.testing.assert_close(out.cpu(), want_out, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(S.cpu(), want_S, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("bad", ["hd_above_64", "contiguity", "mixed_device"])

@@ -112,6 +112,78 @@ def test_scan_variants_match_jax_ref_with_nonzero_state(variant, dims):
                                rtol=3e-4, atol=3e-4)
 
 
+def _steep_logw(shape, seed):
+    """Decays down to the model's floor, log w = -12, which underflow to 0
+    inside a 64-row chunk."""
+    rng = np.random.RandomState(seed)
+    return np.maximum(-np.exp(rng.rand(*shape) * 11 - 8), -12.0).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("dims", [(2, 128, 2, 16), (1, 128, 2, 64),
+                                  (1, 64, 3, 32)])
+def test_subchunk_twin_matches_pallas_kernel(dims):
+    """The kernel's arithmetic (sub-chunk-factored decays, 3xTF32
+    operands) against the Pallas kernel in interpret mode, from the zero
+    state it starts from, at the reference's kernel tolerance."""
+    r, k, v, logw, u, _ = _scan_inputs(*dims, seed=7)
+    want_out, want_S = JK.rwkv6_scan(*map(jnp.asarray, (r, k, v, logw, u)),
+                                     chunk=64)
+    out, S = KR.rwkv6_subchunk(*map(torch.from_numpy, (r, k, v, logw, u)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(S.numpy(), np.asarray(want_S),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", ["serve_hd", "floor", "ragged_T100",
+                                  "ragged_floor_hd32"])
+def test_subchunk_twin_matches_oracle_with_nonzero_state(case):
+    """Against the reference's sequential oracle from a nonzero state.
+    T=100 leaves a last chunk of 36 rows, which ends inside its third
+    16-row sub-chunk; at the -12 floor the factored decays underflow and
+    must give 0, never NaN."""
+    dims = {"serve_hd": (2, 128, 2, 64), "floor": (2, 128, 2, 64),
+            "ragged_T100": (1, 100, 2, 64),
+            "ragged_floor_hd32": (2, 100, 3, 32)}[case]
+    r, k, v, logw, u, S0 = _scan_inputs(*dims, seed=8)
+    if "floor" in case:
+        logw = _steep_logw(dims, seed=9)
+    inputs = (r, k, v, logw, u, S0)
+    want_out, want_S = JR.RWKV6_SCAN.impl_fn("ref")(*map(jnp.asarray, inputs))
+    out, S = KR.rwkv6_subchunk(*map(torch.from_numpy, inputs))
+    assert torch.isfinite(out).all() and torch.isfinite(S).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(S.numpy(), np.asarray(want_S),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_subchunk_twin_needs_the_3xtf32_split():
+    """One TF32 pass (operands rounded to 11 bits) misses the 2e-4
+    tolerance at the serve cell's B=4, T=1024 and hd=64 (2 of its 64
+    heads); the 3xTF32 split meets it with room.  ``-s`` prints both."""
+    inputs = [torch.from_numpy(a) for a in _scan_inputs(4, 1024, 2, 64, 10)]
+    want, want_S = KR.rwkv6_scan(*inputs)
+    err = {}
+    for split in (True, False):
+        out, S = KR.rwkv6_subchunk(*inputs, tf32_split=split)
+        err[split] = ((out - want).abs().max().item(),
+                      (S - want_S).abs().max().item())
+    print(f"twin max|err| (out, S) vs the oracle: 3xTF32 {err[True]}, "
+          f"one TF32 pass {err[False]}")
+    assert max(err[True]) < 5e-5 < 2e-4 < err[False][0]
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                                  # exact in TF32
+    x = torch.tensor([one, 1.0 + 2.0 ** -11,                # tie: away
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -11 - 2.0 ** -23,
+                      0.0, -3.0], dtype=torch.float32)
+    want = [one, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 0.0, -3.0]
+    assert KR.tf32(x).tolist() == want
+
+
 def test_scan_wrapper_cpu_calls_are_not_launches():
     before = dict(K.LAUNCHES)
     K.rwkv6_scan(*map(torch.from_numpy, _scan_inputs(1, 8, 1, 4, seed=0)))
