@@ -16,25 +16,42 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    its plain version, its library call where one exists, and its bound;
 4. the CFD path: SIMPLE steps of the 3-D lid-driven cavity at 200^3
    (8.0M cells, size M of the OpenFOAM HPC Technical Committee's
-   ``Lid-driven_cavity-3d`` benchmark) under the unified policy through the ``hopper`` variants, with every
-   kernel's launch count, then one step held against the ``ref`` step;
-5. the discrete policy: one step paying real staging copies, held against
-   the unified step;
-6. the serve path: ``rwkv6-7b`` at full width (32 layers, random weights
+   ``Lid-driven_cavity-3d`` benchmark) under the unified policy through
+   the ``hopper`` variants, with every kernel's launch count, then one step
+   held against the ``ref`` step;
+5. the four memory models of the paper's Fig 5 (``[policies]``, with the
+   ``[discrete]`` line): one warm-up and one timed step each under host
+   (fields on the CPU, no kernel), discrete (real staging copies), unified
+   and adaptive (its cutoff calibrated on the card first), each held
+   against the unified step;
+6. the fused solver (``[fused]``): ``solve`` with DILU and with Jacobi on
+   the step's pressure system, DILU held against ``pbicgstab_regions``;
+7. capture and replay (``[async]``, Fig 6b): one SIMPLE step captured on
+   the card and replayed under the discrete policy synchronously and with
+   lookahead copies on a side stream, bit for bit equal, and under the
+   unified policy, held against the eager step;
+8. the serve path: ``rwkv6-7b`` at full width (32 layers, random weights
    from ``--seed``), batch 4, prompt 1024, 32 greedy tokens, through the
    captured prefill and decode programs under the unified policy with the
    ``hopper`` variants; K5's launches, the tokens against the uncaptured
    path, the ``hopper`` prefill against the ``ref`` prefill, the
    discrete policy at 8 tokens, and the ``hopper`` prefill against the
    ``ref`` prefill again with the weights widened to f32;
-7. a ``kernels`` JSON line (kernels of both paths) and a ``port_status``
+9. a ``kernels`` JSON line (kernels of both paths) and a ``port_status``
    JSON line (every TPU kernel of the reference and whether it is ported).
+
+Each path's kernel launches are counted from 0 just before it and read
+just after, and so are the calls of the kernels' plain versions with
+operands on the card (the ``ref`` variant of a region that has a kernel
+variant, or a function of a kernel package's ``ref.py``): on every card
+path, capture included, that count must stay 0.
 
 The last line is ``{"ok": true, "device": {...}}``.  Nothing is caught: a
 failed phase ends the run with a non-zero exit code and no result line.
 Without CUDA, or outside a checkout, it exits non-zero at once.
 """
 import argparse
+import collections
 import dataclasses
 import json
 import pathlib
@@ -44,6 +61,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -72,7 +90,15 @@ SERVE = dict(batch=4, prompt_len=1024, gen=32, gen_discrete=8)
 FIELD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
              torch.bfloat16: dict(rtol=2e-2, atol=1e-2)}
 STEP_ENVELOPE = 1e-5          # |err| <= 1e-5 * max(1, max|field|)
+SOLVE_TOL = dict(rtol=3e-4, atol=1e-4)   # fused vs region-wise solve (§2)
 N = 200                       # cells per axis of the cavity
+POLICIES = ("host", "discrete", "unified", "adaptive")
+#: kernels every device-routed SIMPLE step launches (xpay and mul are off it)
+CFD_KERNELS = ("stencil_spmv", "rb_dilu_forward", "rb_dilu_backward",
+               "fused_axpy", "fused_axpbypz")
+
+#: calls of the kernels' plain versions with operands on the card
+PLAIN = collections.Counter()
 
 #: where each kernel of the port replaces a TPU kernel of the reference
 REPLACES = {
@@ -174,6 +200,77 @@ def rel_errs(logits_a, caches_a, logits_b, caches_b):
     return s_rel, l_rel
 
 
+def on_card(tree):
+    from torch.utils._pytree import tree_leaves
+    return any(isinstance(t, torch.Tensor) and t.is_cuda
+               for t in tree_leaves(tree))
+
+
+def count_plain_calls(Region, ref_modules):
+    """Count in ``PLAIN`` every call with operands on the card of a kernel
+    package's plain function and of the ``ref`` variant of a region that
+    has a ``hopper`` variant (what a ``hopper`` call falls back to)."""
+    for mod in ref_modules:
+        for name in [n for n in dir(mod) if not n.startswith("_")]:
+            fn = getattr(mod, name)
+            if not callable(fn) or getattr(fn, "__module__", None) \
+                    != mod.__name__:
+                continue
+
+            def counted(*a, _fn=fn, _key=f"{mod.__name__}.{name}", **k):
+                if on_card((a, k)):
+                    PLAIN[_key] += 1
+                return _fn(*a, **k)
+            setattr(mod, name, counted)
+    impl_fn = Region.impl_fn
+
+    def spied(self, name="ref"):
+        fn = impl_fn(self, name)
+        if name != "ref" or "hopper" not in self.variants:
+            return fn
+
+        def call(*a, **k):
+            if on_card((a, k)):
+                PLAIN[f"region {self.name} ref"] += 1
+            return fn(*a, **k)
+        return call
+    Region.impl_fn = spied
+
+
+def check_plain(path):
+    if PLAIN:
+        raise AssertionError(f"{path}: plain versions ran on the card: "
+                             f"{dict(PLAIN)}")
+
+
+def stencil_csr(diag, off):
+    """The 7-point matrix of (diag, off) as one CSR tensor (int32 indices,
+    columns ascending, neighbours outside the grid left out): what
+    ``torch.mv`` multiplies through cuSPARSE, K1's library counterpart."""
+    from repro_torch.cfd.grid import NEIGHBORS
+    shape = diag.shape
+    n = diag.numel()
+    idx = torch.arange(n, device=diag.device).reshape(shape)
+    strides = (shape[1] * shape[2], shape[2], 1)
+    coords = [torch.arange(s, device=diag.device).view(
+        *[-1 if a == ax else 1 for a in range(3)])
+        for ax, s in enumerate(shape)]
+    slots = sorted([(d * strides[ax], f, ax, d)
+                    for f, (ax, d) in enumerate(NEIGHBORS)] + [(0, -1, 0, 0)])
+    cols, vals, keep = [], [], []
+    for delta, f, ax, d in slots:
+        cols.append((idx + delta).reshape(-1))
+        vals.append((diag if f < 0 else off[f]).reshape(-1))
+        inside = (coords[ax] + d >= 0) & (coords[ax] + d < shape[ax])
+        keep.append(inside.expand(shape).reshape(-1))
+    keep = torch.stack(keep, 1)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=diag.device)
+    crow[1:] = keep.sum(1).cumsum(0)
+    return torch.sparse_csr_tensor(
+        crow.int(), torch.stack(cols, 1)[keep].int(),
+        torch.stack(vals, 1)[keep], size=(n, n))
+
+
 def envelope_err(a, b):
     """(max |a-b|, allowed) of one field under the step envelope."""
     a = a.float().cuda()
@@ -194,10 +291,17 @@ def main(argv=None):
         raise SystemExit(f"chip_smoke: no src/repro_torch beside {__file__}; "
                          "run it from a checkout of the repository")
     sys.path.insert(0, str(src))
+    from repro_torch.cfd.dia import DiaMatrix
     from repro_torch.cfd.grid import Grid, interior_mask, NEIGHBORS
-    from repro_torch.cfd.simple import SimpleConfig, SimpleFoam, init_state
-    from repro_torch.core.regions import (DiscretePolicy, Executor,
-                                          StaticSelector, UnifiedPolicy)
+    from repro_torch.cfd.precond import rb_dilu_factor
+    from repro_torch.cfd.simple import (SimpleConfig, SimpleFoam,
+                                        SimpleState, init_state)
+    from repro_torch.cfd.solvers import (make_solver_regions,
+                                         pbicgstab_regions, solve)
+    from repro_torch.core.program import AsyncExecutor
+    from repro_torch.core.regions import (DiscretePolicy, Executor, Region,
+                                          StaticSelector, TargetSelector,
+                                          UnifiedPolicy, make_policy)
     from repro_torch.kernels import build
     from repro_torch.configs.registry import get_config
     from repro_torch.core.ledger import Ledger
@@ -209,6 +313,7 @@ def main(argv=None):
     from repro_torch.launch import serve as SV
     from repro_torch.models import transformer as T
     from repro_torch.models.params import param_count
+    count_plain_calls(Region, (SR, FR, RR))
 
     # -- 1. the card ----------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -267,7 +372,9 @@ def main(argv=None):
             # name: (kernel, plain, args, bytes, flops, library call)
             "stencil_spmv": (SK.stencil_spmv, SR.stencil_spmv,
                              (diag, off, x), 36 * n,
-                             (1 + 2 * nb).sum().item(), None),
+                             (1 + 2 * nb).sum().item(),
+                             lambda d, o, x, A=stencil_csr(diag, off):
+                                 torch.mv(A, x.reshape(-1)).view(x.shape)),
             "rb_dilu_forward": (SK.rb_dilu_forward, SR.rb_dilu_forward,
                                 (rdiag, red, off, x), 37 * n,
                                 torch.where(red, 1.0, 3 * nb + 2).sum().item(),
@@ -301,6 +408,9 @@ def main(argv=None):
             torch.cuda.synchronize()
             tol = KERNEL_TOL if kname in stencil_cases else FIELD_TOL[dt]
             torch.testing.assert_close(got.float(), want.float(), **tol)
+            if lib is not None:             # the library computes the same
+                torch.testing.assert_close(lib(*kargs).float(), want.float(),
+                                           **tol)
             err = (got.float() - want.float()).abs().max().item()
             line = (f"[kernel] {kname} {str(dt)[6:]} {'x'.join(map(str, shape))}"
                     f" max_abs_err {err:.3e} ok")
@@ -389,11 +499,13 @@ def main(argv=None):
     app = SimpleFoam(cfg, executor=Executor(
         UnifiedPolicy(selector=StaticSelector("hopper"))))
     reset_launches()
+    PLAIN.clear()
     st = init_state(cfg)
     st, fom_warm, _ = app.run_steps(st, 1)               # warm-up step
     app.ledger.reset_timings()
     st, fom, m = app.run_steps(st, 2)
     counts = launches()
+    check_plain("[main]")
     rep = app.ex.report()
     print(f"[main] unified/hopper {N}^3 inner_max=25: FOM {fom:.4f} s/step "
           f"(warm-up step {fom_warm:.4f} s) res_u {m['res_u']:.3e} "
@@ -413,8 +525,7 @@ def main(argv=None):
             raise AssertionError(f"field {f} is not finite")
     if rep["impl_counts"].get("hopper", 0) <= 0:
         raise AssertionError(f"no hopper variant ran: {rep['impl_counts']}")
-    on_path = ("stencil_spmv", "rb_dilu_forward", "rb_dilu_backward",
-               "fused_axpy", "fused_axpbypz")
+    on_path = CFD_KERNELS
     for k in on_path:
         if counts[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
@@ -439,40 +550,214 @@ def main(argv=None):
           f"hopper {outs['hopper'][1]:.4f} ref {outs['ref'][1]:.4f} "
           f"(ref/hopper {outs['ref'][1] / outs['hopper'][1]:.2f})")
 
-    # -- 5. discrete policy: every region pays staging ------------------
-    cfg3 = SimpleConfig(grid, nu=0.1, inner_max=3, tol_u=0.0, tol_p=0.0)
+    # -- 5. the four memory models (Fig 5) at 200^3 ---------------------
+    # one warm-up and one timed step each, tol=0 so every policy runs the
+    # same iterations; host keeps its fields on the CPU (the dCPU model)
+    def steps_cfg(device):
+        return SimpleConfig(Grid((N, N, N), device=device), nu=0.1,
+                            inner_max=3, tol_u=0.0, tol_p=0.0)
+
+    sel = TargetSelector("hopper")
+    st_host = SimpleState(*(getattr(st, f).cpu() for f in "uvwp"), st.step)
     res = {}
-    for pname, policy in (
-            ("discrete", DiscretePolicy(selector=StaticSelector("hopper"))),
-            ("unified", UnifiedPolicy(selector=StaticSelector("hopper")))):
-        a = SimpleFoam(cfg3, executor=Executor(policy))
-        a.run_steps(st, 1)                               # warm-up (pools)
+    for pname in POLICIES:
+        policy = make_policy(pname, selector=sel,
+                             **({"device": dev} if pname == "discrete" else {}))
+        a = SimpleFoam(steps_cfg("cpu" if pname == "host" else dev),
+                       executor=Executor(policy))
+        cut_s = None
+        if pname == "adaptive":
+            t0 = time.perf_counter()
+            a.calibrate_cutoff(policy)
+            cut_s = time.perf_counter() - t0
+        s0 = st_host if pname == "host" else st
+        a.run_steps(s0, 1)                                 # warm-up (pools)
         a.ledger.reset_timings()
         reset_launches()
-        s1, fom1, _ = a.run_steps(st, 1)
-        res[pname] = (s1, fom1, a, launches())
-    rep_d = res["discrete"][2].ex.report()
+        PLAIN.clear()
+        s1, fom1, _ = a.run_steps(s0, 1)
+        check_plain(f"[policies] {pname}")
+        res[pname] = dict(state=s1, fom=fom1, app=a, launches=launches(),
+                          rep=a.ex.report(), policy=policy, cut_s=cut_s)
+    fu = res["unified"]["fom"]
+    for pname in POLICIES:
+        r = res[pname]
+        rep_p, cnt = r["rep"], r["launches"]
+        staged = sum(x.staging_bytes for x in r["app"].ledger.regions.values())
+        errs = {}
+        for f in "uvwp":
+            err, allowed = envelope_err(getattr(res["unified"]["state"], f),
+                                        getattr(r["state"], f))
+            errs[f] = err
+            if not err <= allowed:
+                raise AssertionError(f"{pname} step leaves the unified "
+                                     f"envelope in {f}: {err:.3e} > "
+                                     f"{allowed:.3e}")
+        extra = ""
+        if pname == "adaptive":
+            pol = r["policy"]
+            extra = (f"; cutoff {pol.cutoff} calibrated on the card in "
+                     f"{r['cut_s']:.2f} s over Amul sizes (host s / device "
+                     f"s a call): " + ", ".join(
+                         f"{n}: {t['host']:.3e}/{t['device']:.3e}"
+                         for n, t in pol.calibration.items()))
+            if rep_p["cutoffs"] != {"Amul": pol.cutoff} or \
+                    not pol.calibration:
+                raise AssertionError(f"adaptive cutoff not calibrated: "
+                                     f"{rep_p['cutoffs']}")
+        print(f"[policies] {pname} {N}^3 inner_max=3: FOM {r['fom']:.4f} "
+              f"s/step ({pname}/unified {r['fom'] / fu:.2f}); "
+              f"staging_fraction {rep_p['staging_fraction']:.4f} "
+              f"({staged / 1e9:.3f} GB); device_calls "
+              f"{rep_p['device_calls']} host_calls {rep_p['host_calls']}; "
+              f"impl_counts {rep_p['impl_counts']}; launches "
+              f"{json.dumps(cnt)}; max_abs_err vs unified {errs}{extra}")
+        if pname == "host":
+            if any(cnt.values()) or "hopper" in rep_p["impl_counts"] \
+                    or staged:
+                raise AssertionError("the host policy launched a kernel, "
+                                     "ran hopper or staged bytes")
+        else:
+            missing = [k for k in CFD_KERNELS if cnt[k] <= 0]
+            if missing or rep_p["host_calls"]:
+                raise AssertionError(f"{pname}: kernels {missing} never "
+                                     f"launched, {rep_p['host_calls']} "
+                                     "host-routed calls")
+    rep_d = res["discrete"]["rep"]
     sf = rep_d["staging_fraction"]
     if not sf > 0.5:
         raise AssertionError(f"discrete staging_fraction {sf:.3f} <= 0.5")
-    for f in "uvwp":
-        err, allowed = envelope_err(getattr(res["unified"][0], f),
-                                    getattr(res["discrete"][0], f))
-        if not err <= allowed:
-            raise AssertionError(f"discrete step leaves the unified envelope "
-                                 f"in {f}: {err:.3e} > {allowed:.3e}")
-    fd, fu = res["discrete"][1], res["unified"][1]
+    fd = res["discrete"]["fom"]
     staged = sum(r.staging_bytes
-                 for r in res["discrete"][2].ledger.regions.values())
+                 for r in res["discrete"]["app"].ledger.regions.values())
     print(f"[discrete] {N}^3 inner_max=3: FOM discrete {fd:.4f} s/step, "
           f"unified {fu:.4f} s/step, discrete/unified {fd / fu:.2f}; "
           f"staging_fraction {sf:.4f} ({rep_d['staging_s']:.4f} s, "
           f"{staged / 1e9:.3f} GB); host pool "
-          f"{json.dumps(res['discrete'][2].ex.policy.stager.host_pool.stats.as_dict())}; "
-          f"launches {json.dumps(res['discrete'][3])}")
+          f"{json.dumps(res['discrete']['policy'].stager.host_pool.stats.as_dict())}; "
+          f"launches {json.dumps(res['discrete']['launches'])}")
+    del res, st_host, s0, s1, a, policy
 
-    # -- 6. serve rwkv6-7b at full width -------------------------------
-    del app, a, res, outs, st, s1, policy
+    # -- 6. the fused solver on the step's pressure system -------------
+    # timed at the step's 25 iterations; held against the region-wise
+    # solve at 3 (the [policies] steps'): on this pinned, nearly singular
+    # system PBiCGStab turns rounding-level differences in its scalars
+    # into O(max|x|) ones within 25 iterations (tests/test_torch_solvers.py
+    # holds the port's and the reference's solvers together at 3 and 10)
+    taps = {}
+    app_u = SimpleFoam(cfg, executor=Executor(UnifiedPolicy(selector=sel)))
+
+    def tap(r, *args, **kwargs):
+        out = app_u.ex.run(r, *args, **kwargs)
+        if r is app_u.assemble_pressure:
+            taps["pressure"] = out
+        return out
+
+    app_u.time_step(st, executor=types.SimpleNamespace(run=tap))
+    dp, offp, rp = taps.pop("pressure")
+    A = DiaMatrix(dp, offp)
+    red = grid.red_black_masks()[0]
+    x0 = torch.zeros_like(rp)
+    fused = {}
+    reset_launches()
+    PLAIN.clear()
+    for precond in ("DILU", "Jacobi"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solve(A, rp, x0, red, tol=cfg.tol_p, max_iter=cfg.inner_max,
+                  use_dilu=precond == "DILU")
+        fused[precond] = (r, time.perf_counter() - t0)
+    cnt = launches()
+    check_plain("[fused]")
+    if min(cnt[k] for k in CFD_KERNELS[:3]) <= 0:
+        raise AssertionError(f"the fused solver did not launch K1-K3: {cnt}")
+    ldg = Ledger("fused_check")
+    PLAIN.clear()
+    rd = solve(A, rp, x0, red, tol=cfg.tol_p, max_iter=3)
+    check_plain("[fused]")
+    rr = pbicgstab_regions(Executor(UnifiedPolicy(selector=sel), ldg),
+                           make_solver_regions(ldg), A, rp, x0,
+                           rb_dilu_factor(A, red), tol=cfg.tol_p,
+                           max_iter=3)
+    if rd.iters != rr.iters:
+        raise AssertionError(f"fused DILU took {rd.iters} iterations, "
+                             f"pbicgstab_regions {rr.iters}")
+    torch.testing.assert_close(rd.x, rr.x, **SOLVE_TOL)
+    err = (rd.x - rr.x).abs().max().item()
+    for precond, (r, t) in fused.items():
+        if not torch.isfinite(r.x).all():
+            raise AssertionError(f"fused {precond} solution is not finite")
+        print(f"[fused] {precond} on the {N}^3 pressure system: "
+              f"{r.iters} iterations, residual {r.initial_residual:.3e} -> "
+              f"{r.final_residual:.3e}, {t * 1e3:.2f} ms (factor included)")
+    print(f"[fused] launches {json.dumps(cnt)}; DILU vs pbicgstab_regions "
+          f"at 3 iterations: iterations equal, max_abs_err {err:.3e} of "
+          f"max|x| {rr.x.abs().max().item():.3e} (rtol {SOLVE_TOL['rtol']}, "
+          f"atol {SOLVE_TOL['atol']})")
+    del taps, tap, dp, offp, rp, A, x0, fused, rd, rr, r, app_u
+
+    # -- 7. capture and replay, sync and async (Fig 6b) -----------------
+    a = SimpleFoam(steps_cfg(dev), executor=Executor(
+        UnifiedPolicy(selector=sel)))
+    reset_launches()
+    PLAIN.clear()
+    prog = a.capture_step(st)
+    cnt = launches()
+    check_plain("[async] capture")
+    if min(cnt[k] for k in CFD_KERNELS) <= 0:
+        raise AssertionError(f"capture did not launch the kernels: {cnt}")
+    eager, _ = a.time_step(st)
+    replayed, _ = a.replay_steps(prog, st, 1,
+                                 Executor(UnifiedPolicy(selector=sel)))
+    errs = {}
+    for f in "uvwp":
+        err, allowed = envelope_err(getattr(eager, f), getattr(replayed, f))
+        errs[f] = err
+        if not err <= allowed:
+            raise AssertionError(f"unified replay leaves the eager step's "
+                                 f"envelope in {f}: {err:.3e} > "
+                                 f"{allowed:.3e}")
+    print(f"[async] {prog.summary()}; captured with launches "
+          f"{json.dumps(cnt)}; unified replay vs eager step max_abs_err "
+          f"{errs}")
+    # the discrete model: the state starts in pinned host memory
+    st_pin = SimpleState(*tree_place([getattr(st, f) for f in "uvwp"],
+                                     MemSpace.HOST), st.step)
+    out = {}
+    for mode in ("sync", "async", "async", "sync"):  # in turns
+        pol = DiscretePolicy(selector=sel)
+        ex = Executor(pol) if mode == "sync" else AsyncExecutor(pol)
+        a.replay_steps(prog, st_pin, 1, ex)              # warm-up (pools)
+        ex.ledger.reset_timings()
+        reset_launches()
+        PLAIN.clear()
+        s2, t2 = a.replay_steps(prog, st_pin, 2, ex)
+        check_plain(f"[async] {mode} replay")
+        cnt = launches()
+        if min(cnt[k] for k in CFD_KERNELS) <= 0:
+            raise AssertionError(f"{mode} replay did not launch the "
+                                 f"kernels: {cnt}")
+        rep_r = ex.report()
+        out.setdefault(mode, []).append((s2, t2, rep_r))
+        print(f"[async] discrete {mode} replay, 2 steps: {t2:.4f} s/step; "
+              f"staging_fraction {rep_r['staging_fraction']:.4f} "
+              f"({rep_r['staging_s']:.4f} s); overlap_fraction "
+              f"{rep_r['overlap_fraction']:.4f} (overlap_s "
+              f"{rep_r['overlap_s']:.4f}, staging_saved_s "
+              f"{rep_r['staging_saved_s']:.4f}); launches {json.dumps(cnt)}")
+    for s_a, _, rep_a in out["async"]:
+        if not rep_a["overlap_fraction"] > 0:
+            raise AssertionError("async replay hid no staging")
+        for s_s, _, _ in out["sync"]:
+            for f in "uvwp":
+                if not torch.equal(getattr(s_a, f), getattr(s_s, f)):
+                    raise AssertionError(f"async replay differs from sync "
+                                         f"in {f}")
+    print("[async] sync and async replays equal bit for bit")
+    del a, prog, eager, replayed, st_pin, out, ex, pol, s2, s_a, s_s
+
+    # -- 8. serve rwkv6-7b at full width -------------------------------
+    del app, outs, st
     SG, SGD = SERVE["gen"], SERVE["gen_discrete"]
     gs = torch.Generator(device=dev).manual_seed(args.seed)
     before_serve = torch.cuda.memory_allocated()
@@ -494,16 +779,17 @@ def main(argv=None):
 
     def serve_programs(policy, gen_n):
         """Executor, regions and both captured programs, each replayed
-        once as a warm-up (capture itself runs the ``ref`` variants)."""
+        once as a warm-up (capture runs the policy's variants)."""
         ex = Executor(policy, Ledger("serve"))
         regions = SV.make_serve_regions(scfg, params, ledger=ex.ledger)
         pprog = SV.capture_prefill_program(regions, batch,
-                                           T.init_cache(scfg, SB, dev))
+                                           T.init_cache(scfg, SB, dev),
+                                           selector=policy.selector)
         tok, cache = pprog.replay(ex, batch, T.init_cache(scfg, SB, dev))
         # capture runs the regions eagerly: its examples live on the card
         dprog = SV.capture_decode_program(
             regions, SP, gen_n, *tree_place((tok, cache), MemSpace.DEVICE,
-                                            dev))
+                                            dev), selector=policy.selector)
         dprog.replay(ex, tok, cache)
         ex.ledger.reset_timings()
         return ex, pprog, dprog
@@ -519,6 +805,7 @@ def main(argv=None):
         return torch.stack([t.cpu() for t in toks], 1), t1 - t0, t2 - t1
 
     with_weights = torch.cuda.memory_allocated()
+    PLAIN.clear()
     ex, pprog, dprog = serve_programs(
         UnifiedPolicy(selector=StaticSelector("hopper")), SG)
     held = torch.cuda.memory_allocated()
@@ -526,6 +813,7 @@ def main(argv=None):
     reset_launches()
     seq, t_pre, t_dec = serve_run(ex, pprog, dprog)
     serve_counts = launches()
+    check_plain("[serve] capture and replay")
     peak = torch.cuda.max_memory_allocated()
     impl_prefill = ex.ledger.regions["PREFILL"].impl_counts
     rows = ex.ledger.regions.values()
@@ -585,9 +873,11 @@ def main(argv=None):
     del lh, ch, lr, cr, pre_s, toks_j, cache_end, ld
 
     # the discrete policy: every offloaded region stages the state
+    PLAIN.clear()
     exd, pprog_d, dprog_d = serve_programs(
         DiscretePolicy(selector=StaticSelector("hopper")), SGD)
     seq_d, td_pre, td_dec = serve_run(exd, pprog_d, dprog_d)
+    check_plain("[serve] discrete")
     if not torch.equal(seq_d, seq[:, :SGD]):
         raise AssertionError("discrete tokens differ from the unified run's")
     rep_sd = exd.report()
@@ -624,7 +914,7 @@ def main(argv=None):
         raise AssertionError("f32 hopper prefill leaves the ref envelope")
     del params32, pre32, lh, ch, lr, cr
 
-    # -- 7. the kernels of both paths, and the port's status ------------
+    # -- 9. the kernels of both paths, and the port's status ------------
     print(json.dumps({"kernels": [records[k]
                                   for k in on_path + ("rwkv6_scan",)]}))
     status = [

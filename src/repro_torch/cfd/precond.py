@@ -1,4 +1,4 @@
-"""Preconditioners: two-colour (red-black) DILU.
+"""Preconditioners: two-colour (red-black) DILU, and Jacobi.
 
 OpenFOAM's DILUPreconditioner (paper listing 6) does sequential forward /
 backward substitution.  Under a red-black ordering of the 7-point stencil
@@ -72,6 +72,11 @@ rb_dilu_hopper = RB_DILU.variant("hopper", stencil_kernel.rb_dilu)
 def rb_dilu_apply(P: RBDilu, A: DiaMatrix, r, impl: str = "ref"):
     """Variant-dispatched preconditioner apply for direct callers."""
     return RB_DILU.impl_fn(RB_DILU.resolve(impl))(P.rdiag, P.red, A.off, r)
+
+
+def jacobi_apply(A: DiaMatrix, r):
+    """w = D^-1 r (zero diagonal entries taken as 1)."""
+    return r / torch.where(A.diag == 0, 1.0, A.diag)
 
 
 def dilu_seq_ref(A: DiaMatrix, r) -> np.ndarray:

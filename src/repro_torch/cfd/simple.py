@@ -9,7 +9,9 @@ built from regions so every policy can run it:
   3. momentum corrector:  U = HbyA - rAU*grad(p')         (field macros)
 
 The FOM is average seconds per time-step over the run, the paper's figure
-of merit.
+of merit.  A step can also be captured once (:meth:`SimpleFoam.capture_step`)
+and replayed (:meth:`SimpleFoam.replay_steps`), synchronously or with
+lookahead staging.
 """
 from __future__ import annotations
 
@@ -26,7 +28,12 @@ from repro_torch.cfd.grid import Grid
 from repro_torch.cfd.precond import RBDilu, rb_dilu_factor
 from repro_torch.cfd.solvers import make_solver_regions, pbicgstab_regions
 from repro_torch.core.ledger import Ledger
+from repro_torch.core.program import capture
 from repro_torch.core.regions import Executor, UnifiedPolicy, region
+
+#: the ``Amul`` calibration ladder: region sizes 6 * s^3 for cubes of side
+#: 4 to 64 (the largest operand of a call is its six off-diagonals)
+AMUL_LADDER = tuple(6 * s ** 3 for s in (4, 8, 16, 32, 64))
 
 
 @dataclasses.dataclass
@@ -59,7 +66,9 @@ def init_state(cfg: SimpleConfig) -> SimpleState:
 class SimpleFoam:
     """Region-program version of the solver, runnable under any policy.
     Its tensors live on ``cfg.grid.device`` (CUDA unless the grid says
-    otherwise)."""
+    otherwise).  A region that builds grid tensors builds them on its
+    operands' device (:meth:`_on`), so it also runs when a policy routes
+    it to the host and its operands cross to the CPU."""
 
     def __init__(self, cfg: SimpleConfig, executor: Optional[Executor] = None):
         self.cfg = cfg
@@ -69,12 +78,14 @@ class SimpleFoam:
         self.ops = make_field_ops(self.ledger)
         self.solver_regions = make_solver_regions(self.ledger)
         self.red = cfg.grid.red_black_masks()[0]
+        #: device type -> (grid, red mask) on that device
+        self._grids = {cfg.grid.device.type: (cfg.grid, self.red)}
         asm = dict(ledger=self.ledger)
 
         @region("assemble(momentum)", stencil=STENCIL_OFFSETS,
                 halo_args=("u", "v", "w", "p"), **asm)
         def assemble_momentum(u, v, w, p):
-            g = cfg.grid
+            g = self._on(u)[0]
             phi = fvm.face_fluxes(g, u, v, w)
             conv = fvm.div_upwind(g, phi)
             diff, bc = fvm.laplacian(g, cfg.nu, dirichlet=[True] * 6)
@@ -92,7 +103,7 @@ class SimpleFoam:
         @region("assemble(pressure)", stencil=STENCIL_OFFSETS,
                 halo_args=("u_s", "v_s", "w_s"), **asm)
         def assemble_pressure(rAU, u_s, v_s, w_s):
-            g = cfg.grid
+            g = self._on(rAU)[0]
             # laplacian(rAU, p) with zero-gradient walls (singular -> pinned)
             Ap, _ = fvm.laplacian(g, 1.0, dirichlet=[False] * 6)
             Ap = DiaMatrix(Ap.diag * rAU, Ap.off * rAU[None])
@@ -110,7 +121,8 @@ class SimpleFoam:
         @region("DILU factor", stencil=STENCIL_OFFSETS,
                 halo_args=("diag", "off"), **asm)
         def factor(diag, off):
-            return rb_dilu_factor(DiaMatrix(diag, off), self.red).rdiag
+            return rb_dilu_factor(DiaMatrix(diag, off),
+                                  self._on(diag)[1]).rdiag
 
         @region("momentum corrector", **asm)
         def correct_u(hb_u, hb_v, hb_w, rAU, gpx, gpy, gpz):
@@ -119,7 +131,7 @@ class SimpleFoam:
 
         @region("grad(p)", stencil=STENCIL_OFFSETS, halo_args=("p",), **asm)
         def grad_p(p):
-            return tuple(fvc.grad(cfg.grid, p))
+            return tuple(fvc.grad(self._on(p)[0], p))
 
         @region("rAU=1/A", **asm)
         def recip_diag(diag):
@@ -137,6 +149,14 @@ class SimpleFoam:
         self.correct_u = correct_u
         self.grad_p = grad_p
         self.relax_p = relax_p
+
+    def _on(self, x: torch.Tensor) -> tuple:
+        """(grid, red mask) on ``x``'s device."""
+        got = self._grids.get(x.device.type)
+        if got is None:
+            g = dataclasses.replace(self.cfg.grid, device=x.device)
+            got = self._grids[x.device.type] = (g, g.red_black_masks()[0])
+        return got
 
     # ------------------------------------------------------------------
     def time_step(self, st: SimpleState, executor=None) -> tuple:
@@ -191,3 +211,61 @@ class SimpleFoam:
             st, m = self.time_step(st)
         fom = (time.perf_counter() - t0) / n
         return st, fom, m
+
+    # -- captured-program path (repro_torch.core.program) -------------
+    def capture_step(self, st: SimpleState):
+        """Record one SIMPLE time-step as a
+        :class:`~repro_torch.core.program.RegionProgram`.
+
+        The step executes eagerly during capture, with the variants the
+        app executor's selector picks (so on the card it launches the
+        kernels its replays will launch), and inner solver loops run to
+        their real convergence on ``st``; iteration counts and residual
+        scalars are frozen into the trace, CUDA-graph style.  The trace
+        replays under any policy, synchronously or overlapped by
+        :class:`~repro_torch.core.program.AsyncExecutor`.  Capture stages
+        nothing, so it runs on ``st`` moved to the grid's device (under the
+        discrete policy a step hands its fields back in host pages)."""
+        class _Rec:                   # quacks like an Executor for time_step
+            def __init__(self, run):
+                self.run = run
+
+        st = SimpleState(*(getattr(st, f).to(self.cfg.grid.device)
+                           for f in "uvwp"), st.step)
+
+        def step_fn(run, u, v, w, p):
+            new, _ = self.time_step(SimpleState(u, v, w, p, st.step),
+                                    executor=_Rec(run))
+            return (new.u, new.v, new.w, new.p)
+
+        return capture(step_fn, st.u, st.v, st.w, st.p, name="simple_step",
+                       selector=self.ex.policy.selector)
+
+    def replay_steps(self, prog, st: SimpleState, n: int,
+                     executor) -> tuple:
+        """Replay a captured step ``n`` times, chaining the state through.
+        Returns (state, seconds per step)."""
+        t0 = time.perf_counter()
+        for _ in range(n):
+            u, v, w, p = prog.replay(executor, st.u, st.v, st.w, st.p)
+            st = SimpleState(u, v, w, p, st.step + 1)
+        return st, (time.perf_counter() - t0) / n
+
+    def calibrate_cutoff(self, policy, sizes=AMUL_LADDER,
+                         reps: int = 20) -> int:
+        """Calibrate an :class:`~repro_torch.core.regions.AdaptivePolicy`'s
+        cutoff on this app's ``Amul`` region over cubes of the grid's
+        device, each with the Laplacian's coefficients.  ``sizes`` are
+        region sizes (``6 * cells``: the largest operand is the six
+        off-diagonals); the cutoff lands on the ``Amul`` ledger row."""
+        device = self.cfg.grid.device
+
+        def make_args(n):
+            side = round((n / 6) ** (1 / 3))
+            if 6 * side ** 3 != n:
+                raise ValueError(f"calibration size {n} is not 6 * a cube")
+            A, _ = fvm.laplacian(Grid((side,) * 3, device=device), 1.0)
+            return A.diag, A.off, torch.ones_like(A.diag)
+
+        return policy.calibrate(self.solver_regions.amul, make_args,
+                                sizes=sizes, reps=reps, ledger=self.ledger)

@@ -1,11 +1,17 @@
-"""Krylov solver: region-granular PBiCGStab (paper listing 5).
+"""Krylov solvers: region-granular PBiCGStab (paper listing 5) and the
+fused one.
 
-Faithful to the paper's porting model: every region (Amul, preconditioner,
-each field macro, each reduction) is a separate offloaded region run
-through an executor.  Under the discrete policy each region pays staging —
-the page-migration storm of Fig 6; under the unified policy the
-alternation is free — the APU claim.  The scalars (``rho``, ``alpha``,
-``omega``...) come back to the host each iteration, as in the reference.
+:func:`pbicgstab_regions` is faithful to the paper's porting model: every
+region (Amul, preconditioner, each field macro, each reduction) is a
+separate offloaded region run through an executor.  Under the discrete
+policy each region pays staging — the page-migration storm of Fig 6; under
+the unified policy the alternation is free — the APU claim.  The scalars
+(``rho``, ``alpha``, ``omega``...) come back to the host each iteration,
+as in the reference.
+
+:func:`pbicgstab_fused` is the same iteration as one torch loop with no
+regions and no ledger rows, the counterpart of the reference's jitted
+``while_loop``.
 """
 from __future__ import annotations
 
@@ -16,10 +22,12 @@ import torch
 
 from repro_torch.cfd.dia import (DiaMatrix, STENCIL_OFFSETS, amul_hopper,
                                  amul_ref, compose_offsets)
-from repro_torch.cfd.precond import (RBDilu, _rb_dilu_ref, rb_dilu_hopper)
+from repro_torch.cfd.precond import (RBDilu, _rb_dilu_ref, jacobi_apply,
+                                     rb_dilu_factor, rb_dilu_hopper)
 from repro_torch.core.ledger import Ledger
 from repro_torch.core.regions import region
 from repro_torch.kernels.fused_field import kernel as field_kernel
+from repro_torch.kernels.stencil_spmv import kernel as stencil_kernel
 
 SMALL = 1e-20
 
@@ -130,3 +138,81 @@ def pbicgstab_regions(executor, regions, A: DiaMatrix, b, x0, P: RBDilu,
         res = float(run(regions.summag, r)) / norm
         it += 1
     return SolveResult(x, it, res0, res, res <= tol)
+
+
+# ---------------------------------------------------------------------------
+# Fused PBiCGStab (one torch loop)
+# ---------------------------------------------------------------------------
+
+def pbicgstab_fused(A: DiaMatrix, b, x0, rdiag, red, tol: float = 1e-6,
+                    max_iter: int = 500, use_dilu: bool = True):
+    """PBiCGStab as one loop of torch ops, no regions and no ledger rows.
+    Returns (x, iterations, initial residual, final residual), the last
+    two as 0-d tensors.
+
+    A is applied through the stencil kernel's wrapper (K1) and the DILU
+    preconditioner through the half-sweep kernels' wrappers (K2/K3): on
+    CUDA operands they launch the kernels, on CPU operands they run the
+    plain versions.  ``use_dilu=False`` takes Jacobi.  The scalars stay
+    0-d float32 tensors on the operands' device and every reduction
+    accumulates in float32, as the reference's do (its ``astype(float64)``
+    is float32 there, since it never enables 64-bit floats).  Unlike the
+    reference's ``while_loop``, which tests convergence on the device, the
+    loop reads the residual on the host once per iteration to decide
+    whether to go on."""
+    def amul(x):
+        return stencil_kernel.stencil_spmv(A.diag, A.off, x)
+
+    def precond(r):
+        return stencil_kernel.rb_dilu(rdiag, red, A.off, r) if use_dilu \
+            else jacobi_apply(A, r)
+
+    def dot(a, c):
+        return torch.sum(a * c, dtype=torch.float32)
+
+    def guard(d, small):
+        return torch.where(small, SMALL, d)
+
+    norm = torch.sum(torch.abs(b), dtype=torch.float32) + SMALL
+
+    def res_of(r):
+        return torch.sum(torch.abs(r), dtype=torch.float32) / norm
+
+    x, r = x0, b - amul(x0)
+    rA0 = r
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    one = torch.ones((), dtype=torch.float32, device=b.device)
+    rho_old, alpha, omega = one, one, one
+    res0 = res = res_of(r)
+    it = 0
+    while it < max_iter and bool(res > tol):
+        rho = dot(rA0, r)
+        beta = (rho / guard(rho_old, rho_old.abs() < SMALL)) \
+            * (alpha / guard(omega, omega.abs() < SMALL))
+        p = r + beta * (p - omega * v)
+        yA = precond(p)
+        v = amul(yA)
+        denom = dot(rA0, v)
+        alpha = rho / guard(denom, denom.abs() < SMALL)
+        s = r - alpha * v
+        zA = precond(s)
+        t = amul(zA)
+        tt = dot(t, t)
+        omega = dot(t, s) / guard(tt, tt < SMALL)
+        x = x + alpha * yA + omega * zA
+        r = s - omega * t
+        rho_old = rho
+        res = res_of(r)
+        it += 1
+    return x, it, res0, res
+
+
+def solve(A: DiaMatrix, b, x0, red, tol: float = 1e-6, max_iter: int = 500,
+          use_dilu: bool = True) -> SolveResult:
+    """Factor the red-black DILU preconditioner, then run
+    :func:`pbicgstab_fused`."""
+    P = rb_dilu_factor(A, red)
+    x, it, r0, res = pbicgstab_fused(A, b, x0, P.rdiag, P.red, tol=tol,
+                                     max_iter=max_iter, use_dilu=use_dilu)
+    return SolveResult(x, it, float(r0), float(res), float(res) <= tol)

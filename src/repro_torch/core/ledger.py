@@ -98,6 +98,10 @@ class Ledger:
             r.host_compute_s += compute_s
             r.host_elems += elems
 
+    def set_cutoff(self, name: str, cutoff: int) -> None:
+        """Store a calibrated TARGET_CUT_OFF with the region it governs."""
+        self.region(name).cutoff = cutoff
+
     def attach_pool(self, name: str, pool) -> None:
         """Surface a pool's PoolStats in coverage_report() (``pools``
         section).  Re-attaching under the same name replaces."""

@@ -4,9 +4,12 @@ executor (counterpart of ``repro.core.program``).
 * :func:`capture` runs a step function once under a recording ``run``
   callable and records every region call plus the dataflow between calls
   (which output leaf feeds which later argument leaf).  Capture executes
-  each region's base (``ref``) function eagerly, so host-side control flow
-  proceeds normally and is *frozen* into the trace, CUDA-graph style:
-  loop counts and host scalars become program constants.
+  each call eagerly, so host-side control flow proceeds normally and is
+  *frozen* into the trace, CUDA-graph style: loop counts and host scalars
+  become program constants.  It runs the variant that the caller's
+  ``selector`` picks (``ref`` when none is given), so on the card a
+  captured step runs the kernels that its replays will run and no plain
+  version.
 * :class:`RegionProgram` is the trace: ops, input slots, constants and
   the output spec.  ``replay(executor, *inputs)`` re-issues the calls
   through an :class:`~repro_torch.core.regions.Executor` under any policy,
@@ -16,6 +19,13 @@ executor (counterpart of ``repro.core.program``).
   re-resolves each op's variant through the executing policy's selector:
   one captured step replays under ``StaticSelector("ref")`` or
   ``StaticSelector("hopper")`` without re-capturing.
+* :class:`AsyncExecutor` replays a program with one-op lookahead staging:
+  while op *k* computes on the compute stream, op *k+1*'s operands that are
+  already available are copied on a side CUDA stream into the next bank of
+  a :class:`~repro_torch.core.pool.BufferRotation`, and the compute stream
+  waits on the copies' event before op *k+1*.  The same kernels run on
+  the same copies as under the synchronous ``Executor``, so results are
+  bit for bit the same; only the schedule of the copies changes.
 
 Capture semantics: tensor leaves returned by a region and passed to a
 later region become dataflow edges that replay recomputes; tensor leaves
@@ -24,19 +34,22 @@ everything else (Python scalars, tensors computed outside any region) is
 captured as a constant.
 
 Trees are flattened with ``torch.utils._pytree``.  Still to come (ROADMAP
-A.5): ``replay_batch``, ``as_fn``, ``AsyncExecutor``, ``interval_overlap``
-and ``verify``.
+A.3): ``replay_batch``, ``as_fn`` and ``verify``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 import weakref
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.core.regions import Region
+from repro_torch.core.ledger import Ledger
+from repro_torch.core.pool import BufferRotation
+from repro_torch.core.regions import Executor, Region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +80,33 @@ class OpCall:
     region: Region
     in_tree: Any                 # TreeSpec of (args, kwargs)
     leaves: List[Any]            # Ref | In | Lit per argument leaf
+    arg_keys: List[Any]          # per-leaf top-level arg index / kwarg name
+    example_size: int            # size_fn at capture (routing prediction)
+
+
+def _resolver(env: List[List[Any]], in_leaves: List[Any]) -> Callable:
+    """The one Ref/In/Lit resolution rule, shared by every replay path."""
+    def resolve(d):
+        if isinstance(d, Ref):
+            return env[d.op][d.leaf]
+        if isinstance(d, In):
+            return in_leaves[d.slot]
+        return d.value
+    return resolve
+
+
+def _flatten_call(args, kwargs) -> Tuple[List[Any], List[Any], Any]:
+    """Flatten (args, kwargs), keeping per leaf the top-level positional
+    index or keyword name it belongs to.  Leaf order is that of
+    ``pytree.tree_flatten((args, kwargs))``: tuples in order, dicts in
+    insertion order."""
+    leaves, tree = pytree.tree_flatten((args, kwargs))
+    keys: List[Any] = []
+    for idx, a in enumerate(args):
+        keys += [idx] * len(pytree.tree_leaves(a))
+    for name, a in kwargs.items():
+        keys += [name] * len(pytree.tree_leaves(a))
+    return leaves, keys, tree
 
 
 class RegionProgram:
@@ -105,38 +145,44 @@ class RegionProgram:
         return leaves
 
     def replay(self, executor, *inputs):
-        """Re-issue the trace, in order, through ``executor.run`` on
-        ``inputs``, which have the structure of the capture's examples."""
+        """Re-issue the trace through ``executor`` on ``inputs``, which have
+        the structure of the capture's examples.  ``executor`` is an
+        :class:`~repro_torch.core.regions.Executor` (any policy) or an
+        :class:`AsyncExecutor` (same results, overlapped staging)."""
+        if hasattr(executor, "replay_program"):
+            return executor.replay_program(self, *inputs)
+        return self._replay_sequential(executor.run, inputs)
+
+    def _drop_dead(self, env: List[List[Any]], i: int) -> None:
+        """Drop the output leaves whose last reader is op ``i``."""
+        for k, j in self._dead_after.get(i, ()):
+            env[k][j] = None
+
+    def _replay_sequential(self, run: Callable, inputs: tuple):
         in_leaves = self._input_leaves(inputs)
         env: List[List[Any]] = []
-
-        def resolve(d):
-            if isinstance(d, Ref):
-                return env[d.op][d.leaf]
-            if isinstance(d, In):
-                return in_leaves[d.slot]
-            return d.value
-
+        resolve = _resolver(env, in_leaves)
         for i, op in enumerate(self.ops):
             args, kwargs = pytree.tree_unflatten(
                 [resolve(d) for d in op.leaves], op.in_tree)
-            env.append(pytree.tree_leaves(executor.run(op.region, *args,
-                                                       **kwargs)))
+            env.append(pytree.tree_leaves(run(op.region, *args, **kwargs)))
             del args, kwargs
-            for k, j in self._dead_after.get(i, ()):
-                env[k][j] = None
+            self._drop_dead(env, i)
         return pytree.tree_unflatten([resolve(d) for d in self.out_leaves],
                                      self.out_tree)
 
 
-def capture(fn: Callable, *example_inputs,
-            name: str = "program") -> RegionProgram:
+def capture(fn: Callable, *example_inputs, name: str = "program",
+            selector: Optional[Any] = None) -> RegionProgram:
     """Record ``fn(run, *example_inputs)`` into a :class:`RegionProgram`.
 
     ``fn`` receives a recording ``run(region, *args, **kwargs)`` callable in
-    place of ``Executor.run``; every call runs the region's base function
-    eagerly (so Python control flow sees concrete values) and is recorded
-    with its dataflow."""
+    place of ``Executor.run``; every call runs eagerly (so Python control
+    flow sees concrete values) and is recorded with its dataflow.  Each
+    call runs the variant ``selector`` picks for the ``default`` target at
+    the call's size (the executing policy's selector, so that on the card
+    capture launches the kernels its replays launch); without a selector,
+    the base function ``ref``."""
     prog = RegionProgram(name)
     in_leaves, prog.in_tree = pytree.tree_flatten(example_inputs)
     prog.n_inputs = len(in_leaves)
@@ -159,9 +205,12 @@ def capture(fn: Callable, *example_inputs,
         return Lit(x)
 
     def run(r: Region, *args, **kwargs):
-        leaves, tree = pytree.tree_flatten((args, kwargs))
-        op = OpCall(r, tree, [describe(x) for x in leaves])
-        out = r.fn(*args, **kwargs)
+        leaves, keys, tree = _flatten_call(args, kwargs)
+        size = r.size_fn(args, kwargs)
+        op = OpCall(r, tree, [describe(x) for x in leaves], keys, size)
+        impl = "ref" if selector is None else r.resolve(
+            selector.select(r, "default", args, kwargs, size=size))
+        out = r.impl_fn(impl)(*args, **kwargs)
         k = len(prog.ops)
         out_leaves = pytree.tree_leaves(out)
         for j, ol in enumerate(out_leaves):
@@ -186,3 +235,227 @@ def capture(fn: Callable, *example_inputs,
     for key, i in last.items():
         prog._dead_after.setdefault(i, []).append(key)
     return prog
+
+
+# ---------------------------------------------------------------------------
+# AsyncExecutor: one-op lookahead staging on a side stream
+# ---------------------------------------------------------------------------
+
+def interval_overlap(t0: float, t1: float, spans) -> float:
+    """Seconds of the interval ``[t0, t1]`` covered by the (disjoint)
+    compute intervals ``spans``: staging hidden behind compute."""
+    return sum(max(0.0, min(t1, b1) - max(t0, b0)) for b0, b1 in spans)
+
+
+@dataclasses.dataclass
+class _Prefetch:
+    """The lookahead copies queued for one upcoming op."""
+    staged: Dict[int, Any]       # leaf index -> staged device leaf
+    nbytes: int
+    start: Any                   # stamps (see _Streams) around the copies
+    done: Any
+    sources: List[Any]           # the copies' sources, alive until read
+
+
+class _Streams:
+    """Where the async replay's work runs, and when.  On a card: the
+    compute stream, a side stream for the lookahead copies, and CUDA-event
+    stamps timed against one reference event.  On the CPU both are the
+    host, a copy is done when it returns, and stamps are the host clock,
+    so a copy never overlaps compute."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.compute = torch.cuda.current_stream(device)
+            self.side = torch.cuda.Stream(device)
+            self.side.wait_stream(self.compute)   # inputs queued before us
+        self._ref = self.stamp()
+
+    def stamp(self):
+        """A timestamp on the current stream."""
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def seconds(self, stamp) -> float:
+        """Seconds from the reference stamp to ``stamp`` (waits for it)."""
+        if not self.cuda:
+            return stamp - self._ref
+        stamp.synchronize()
+        return self._ref.elapsed_time(stamp) / 1e3
+
+    def finish(self, stamp) -> None:
+        """Wait on the host until ``stamp``'s stream has reached it."""
+        if self.cuda:
+            stamp.synchronize()
+
+    def prefetch(self, stager, ready: List[Tuple[int, Any]],
+                 rotation) -> _Prefetch:
+        """Queue the copies of ``ready`` (leaf index, leaf) on the side
+        stream into ``rotation``'s active bank; returns at once."""
+        sources = [x for _, x in ready]
+        side = torch.cuda.stream(self.side) if self.cuda \
+            else contextlib.nullcontext()
+        with side:
+            start = self.stamp()
+            staged, nbytes = stager.enqueue_leaves(sources, rotation)
+            done = self.stamp()
+        return _Prefetch({i: y for (i, _), y in zip(ready, staged)}, nbytes,
+                         start, done, sources)
+
+    def consume(self, pf: _Prefetch) -> None:
+        """Make the compute stream wait for a prefetch's copies, and tell
+        the allocator that the compute stream reads its buffers."""
+        if self.cuda:
+            self.compute.wait_event(pf.done)
+            for y in pf.staged.values():
+                if isinstance(y, torch.Tensor):
+                    y.record_stream(self.compute)
+
+    def close(self) -> None:
+        """Order the compute stream after every queued copy."""
+        if self.cuda:
+            self.compute.wait_stream(self.side)
+
+
+class AsyncExecutor:
+    """Replays :class:`RegionProgram`\\ s under one policy with one-op
+    staging lookahead, double-buffered through a
+    :class:`~repro_torch.core.pool.BufferRotation`.
+
+    While op *k* computes, op *k+1*'s operand leaves that are already
+    available (program inputs, constants, outputs of ops before *k*) are
+    copied on a side stream into the next bank; leaves that op *k* itself
+    produces are staged at issue time on the compute stream.  The overlap
+    of the copies with op *k*'s compute, both timed by CUDA events against
+    one reference event, is booked as ``overlap_s`` on op *k+1*'s ledger
+    row.  On the CPU the copies run when queued, before op *k* is waited
+    on, and the overlap is 0.
+
+    Ops that do not stage (a policy without a staging stager, a host
+    target, a region without a directive) run through a synchronous inner
+    ``Executor``, which is also what ``run`` delegates to, so an
+    AsyncExecutor stands anywhere an Executor does."""
+
+    def __init__(self, policy, ledger: Optional[Ledger] = None,
+                 lookahead_depth: int = 2):
+        self.policy = policy
+        self.ledger = ledger or Ledger(policy.name + "+async")
+        self.mode = policy.name + "+async"
+        self.lookahead_depth = lookahead_depth
+        self._inner = Executor(policy, self.ledger)
+
+    def run(self, target_region, *args, **kwargs):
+        return self._inner.run(target_region, *args, **kwargs)
+
+    def report(self) -> dict:
+        rep = self.ledger.coverage_report()
+        rep["mode"] = self.mode
+        return rep
+
+    def replay_program(self, prog: RegionProgram, *inputs):
+        stager = self.policy.stager
+        if not getattr(stager, "stages", False) or \
+                not hasattr(stager, "enqueue_leaves"):
+            # nothing to overlap (APU/host model): plain sequential replay
+            return prog._replay_sequential(self._inner.run, inputs)
+        return self._replay_overlapped(prog, inputs)
+
+    def _replay_overlapped(self, prog: RegionProgram, inputs: tuple):
+        pol = self.policy
+        stager = pol.stager
+        in_leaves = prog._input_leaves(inputs)
+        env: List[List[Any]] = []
+        resolve = _resolver(env, in_leaves)
+        rotation = BufferRotation(stager.device_pool,
+                                  depth=self.lookahead_depth)
+        streams = _Streams(stager.arena.device)
+
+        def will_stage(op: OpCall) -> bool:
+            """Predicted from the captured example size; a wrong
+            prediction only wastes one prefetch."""
+            tgt = pol.router.target(op.region, (), {}, size=op.example_size)
+            return op.region.offloaded and tgt != "host"
+
+        pending: Optional[Tuple[int, _Prefetch]] = None
+        prev_compute = (0.0, 0.0)
+        for k, op in enumerate(prog.ops):
+            r = op.region
+            raw = [resolve(d) for d in op.leaves]
+            args, kwargs = pytree.tree_unflatten(raw, op.in_tree)
+            n = r.size_fn(args, kwargs)
+            tgt = pol.router.target(r, args, kwargs, size=n)
+            pf = None
+            if pending is not None and pending[0] == k:
+                pf = pending[1]
+                pending = None
+                streams.consume(pf)
+            if not (r.offloaded and tgt != "host"):
+                # not staging: the synchronous path; a mispredicted
+                # prefetch is dropped (its bank drains at the end)
+                env.append(pytree.tree_leaves(self._inner.run(r, *args,
+                                                              **kwargs)))
+                del args, kwargs
+                prog._drop_dead(env, k)
+                continue
+            impl = r.resolve(pol.selector.select(r, tgt, args, kwargs,
+                                                 size=n))
+            staging_s, staging_b = 0.0, 0
+            staged_map = dict(pf.staged) if pf else {}
+            todo = [(i, x) for i, x in enumerate(raw)
+                    if isinstance(x, torch.Tensor) and i not in staged_map]
+            if todo:
+                staged, s, b = stager.stage_leaves([x for _, x in todo],
+                                                   rotation)
+                staging_s += s
+                staging_b += b
+                staged_map.update({i: y for (i, _), y in zip(todo, staged)})
+            args, kwargs = pytree.tree_unflatten(
+                [staged_map.get(i, x) for i, x in enumerate(raw)], op.in_tree)
+            t0 = time.perf_counter()
+            c0 = streams.stamp()
+            out = r.executable(tgt, impl)(*args, **kwargs)
+            c1 = streams.stamp()
+            # queue the NEXT op's copies before waiting on this op's
+            # compute: this ordering is the whole overlap
+            if k + 1 < len(prog.ops) and will_stage(prog.ops[k + 1]):
+                nxt = prog.ops[k + 1]
+                ready = []
+                for i, d in enumerate(nxt.leaves):
+                    if isinstance(d, Ref) and d.op >= k:
+                        continue                # depends on op k: not ready
+                    x = resolve(d)
+                    if isinstance(x, torch.Tensor):
+                        ready.append((i, x))
+                if ready:
+                    rotation.advance()
+                    pending = (k + 1, streams.prefetch(stager, ready,
+                                                       rotation.handle()))
+            streams.finish(c1)
+            t1 = time.perf_counter()
+            overlap_s = 0.0
+            if pf is not None:
+                p0, p1 = streams.seconds(pf.start), streams.seconds(pf.done)
+                staging_s += p1 - p0
+                staging_b += pf.nbytes
+                overlap_s = interval_overlap(p0, p1, (prev_compute,))
+            prev_compute = (streams.seconds(c0), streams.seconds(c1))
+            out, s, b = stager.stage_out(r, out, None)
+            staging_s += s
+            staging_b += b
+            rotation.retire()           # this op's staged inputs are dead
+            out = pol.placer.place_result(r, out)
+            self.ledger.record(self._inner._row_name(r), device=True,
+                               offloaded=r.offloaded, compute_s=t1 - t0,
+                               staging_s=staging_s, staging_bytes=staging_b,
+                               elems=n, overlap_s=overlap_s, impl=impl)
+            env.append(pytree.tree_leaves(out))
+            del args, kwargs, out, pf
+            prog._drop_dead(env, k)
+        streams.close()
+        rotation.drain()
+        return pytree.tree_unflatten([resolve(d) for d in prog.out_leaves],
+                                     prog.out_tree)

@@ -1,21 +1,36 @@
 """One region, one policy: the canonical offload API (paper C1+C2+C3).
 
 The paper's claim is that unified memory lets a *single* abstraction — "a
-region with a directive" — be retargeted across host, discrete-managed and
-APU execution without touching application code.  This module is that
+region with a directive" — be retargeted across host, discrete-managed
+and APU execution without touching application code.  This module is that
 abstraction, in PyTorch's eager idiom:
 
 * :class:`Region` — one directive-sized unit of work: the function, its
   named implementation variants (``ref`` is always the function itself;
   hand-written kernels register as ``hopper``), a problem-size measure, the
   offload hint and the stencil metadata of sharded replay.
+  :meth:`Region.executable` is the callable of one (routing target,
+  variant) pair.
 * An execution policy of four axes: placement (:class:`Placer`), routing
-  (:class:`StaticRouter`), staging (:class:`NullStager` — the APU, or
-  :class:`MigrationStager` — real copies through pooled buffers on a
-  discrete card) and selection (:class:`StaticSelector`,
+  (:class:`StaticRouter`, or :class:`SizeRouter` — the paper's
+  ``if(target: n > TARGET_CUT_OFF)``), staging (:class:`NullStager` — the
+  APU, or :class:`MigrationStager` — real copies through pooled buffers on
+  a discrete card) and selection (:class:`StaticSelector`,
   :class:`TargetSelector`: which variant runs, OpenMP ``declare variant``).
+  The four memory models of the paper are :class:`HostPolicy`,
+  :class:`DiscretePolicy`, :class:`UnifiedPolicy` and
+  :class:`AdaptivePolicy` (:func:`make_policy`).
 * :class:`Executor` — runs regions under a policy and accounts every call
   into one :class:`~repro_torch.core.ledger.Ledger`.
+
+What ``host`` means on a discrete card.  The reference's host and device
+share one memory in its CPU runs; an H100's do not.  So a call routed to
+the ``host`` target copies its CUDA operands to the CPU, runs there, and
+copies its results back to the operands' device.  Those crossings are
+real: the executor times them and books them on the call's ledger row as
+``staging_s``/``staging_bytes``.  CPU operands cross nothing.  This is the
+one place where the port's accounting departs from the reference's, whose
+``Executor.run`` stages only when the target is not ``host``.
 """
 from __future__ import annotations
 
@@ -30,6 +45,38 @@ from repro_torch.core import umem
 from repro_torch.core.ledger import GLOBAL_LEDGER, Ledger
 from repro_torch.core.pool import DeviceBufferPool, HostStagingPool
 from repro_torch.core.umem import UnifiedArena
+from repro_torch.kernels import KERNEL_VARIANT
+
+
+DEFAULT_CUTOFF = 16384          # the paper's empirical TARGET_CUT_OFF
+
+#: routing targets: where the operands live (APU), the CPU, the card
+TARGETS = ("default", "host", "device")
+
+_CPU = torch.device("cpu")
+
+
+def _home_device(tree) -> Optional[torch.device]:
+    """The device of the first tensor leaf that is not on the CPU (None
+    when every tensor leaf is on the CPU)."""
+    for x in umem.tree_leaves(tree):
+        if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+            return x.device
+    return None
+
+
+def _move(tree, device: torch.device):
+    """Copy every tensor leaf not on ``device`` there; returns (tree,
+    bytes moved)."""
+    moved = [0]
+
+    def one(x):
+        if not isinstance(x, torch.Tensor) or x.device == device:
+            return x
+        moved[0] += umem.nbytes(x)
+        return x.to(device)
+
+    return umem.tree_map(one, tree), moved[0]
 
 
 def default_size(args, kwargs) -> int:
@@ -97,6 +144,35 @@ class Region:
         """Declare-variant fallback: an unregistered name runs ``ref``."""
         return name if name in self._variants else "ref"
 
+    def executable(self, target: str = "default",
+                   impl: str = "ref") -> Callable:
+        """The callable of one (routing target, variant) pair, run eagerly
+        (compiling it is ROADMAP A.2).  ``default`` and ``device`` run the
+        variant on the operands as they are: where they live (the APU), or
+        on the card where the policy's stager or the caller put them.
+        ``host`` runs on the CPU: CUDA operands cross to it and the results
+        cross back (the module docstring).  Unknown names fall back to
+        ``ref``; a kernel variant on the host target raises."""
+        if target not in TARGETS:
+            raise ValueError(f"target {target!r} is not one of {TARGETS}")
+        impl = self.resolve(impl)
+        fn = self.impl_fn(impl)
+        if target != "host":
+            return fn
+        if impl == KERNEL_VARIANT:
+            raise ValueError(
+                f"region {self.name!r}: variant {impl!r} launches a CUDA "
+                "kernel and cannot run on the host target")
+
+        def on_host(*args, **kwargs):
+            home = _home_device((args, kwargs))
+            if home is None:
+                return fn(*args, **kwargs)
+            (args, kwargs), _ = _move((args, kwargs), _CPU)
+            return _move(fn(*args, **kwargs), home)[0]
+
+        return on_host
+
 
 def region(name: Optional[str] = None, *, offloaded: bool = True,
            ledger: Optional[Ledger] = None, size_fn: Optional[Callable] = None,
@@ -133,6 +209,21 @@ class StaticRouter:
             else self.fallback_target
 
 
+@dataclasses.dataclass
+class SizeRouter:
+    """The ``if(target: n > TARGET_CUT_OFF)`` clause (paper C3) inside an
+    executor: calls larger than ``cutoff`` go to the card, the rest and
+    every region without a directive to the host."""
+    cutoff: int = DEFAULT_CUTOFF
+
+    def target(self, region: Region, args, kwargs,
+               size: Optional[int] = None) -> str:
+        if not region.offloaded:
+            return "host"
+        n = region.size_fn(args, kwargs) if size is None else size
+        return "device" if n > self.cutoff else "host"
+
+
 class NullStager:
     """APU model: crossing the boundary moves no bytes."""
     stages = False
@@ -158,6 +249,13 @@ class MigrationStager:
     host staging pages (pinned on a CUDA build) and handed to the caller as
     those pages, so the next offloaded region pays the migration again.
 
+    Every wait is on the current stream's own work (``_sync``), never a
+    device-wide synchronise, so a lookahead copy queued on a side stream
+    (:class:`~repro_torch.core.program.AsyncExecutor`) neither waits for
+    these copies nor holds them up.  Inbound copies from pooled host pages
+    (pinned on a CUDA build) are asynchronous; a pageable source is copied
+    by the CUDA runtime before the call returns.
+
     Lifetimes: a page goes back to the host pool only when the result
     tensor handed out, and every view taken of it, is garbage
     (``weakref.finalize``), so the next result never lands in bytes a
@@ -176,13 +274,17 @@ class MigrationStager:
             self.device_pool = DeviceBufferPool(device=self.arena.device)
 
     def _sync(self) -> None:
+        """Wait for the work queued on the current stream, and no other."""
         if self.arena.device.type == "cuda":
-            torch.cuda.synchronize(self.arena.device)
+            torch.cuda.current_stream(self.arena.device).synchronize()
 
-    def _migrate_in(self, x):
+    def _migrate_in(self, x, rotation=None):
+        """One leaf into a pooled device buffer (a bank of ``rotation`` when
+        given), copied on the current stream."""
         if not isinstance(x, torch.Tensor):
             return x
-        dst = self.device_pool.acquire(x.shape, x.dtype)
+        pool = rotation if rotation is not None else self.device_pool
+        dst = pool.acquire(x.shape, x.dtype)
         dst.copy_(x, non_blocking=True)             # host -> device copy
         return dst
 
@@ -197,6 +299,21 @@ class MigrationStager:
         t0 = time.perf_counter()
         nbytes = self.arena.bytes_of((args, kwargs))
         staged = umem.tree_map(self._migrate_in, (args, kwargs))
+        self._sync()
+        return staged, time.perf_counter() - t0, nbytes
+
+    def enqueue_leaves(self, leaves, rotation=None):
+        """Queue the copies of a flat list of leaves on the current stream
+        through ``rotation``'s banks, without waiting for them; returns
+        (staged leaves, bytes).  The async replay's lookahead path."""
+        return ([self._migrate_in(x, rotation) for x in leaves],
+                self.arena.bytes_of(leaves))
+
+    def stage_leaves(self, leaves, rotation=None):
+        """:meth:`enqueue_leaves`, then wait for the copies; returns
+        (staged leaves, seconds, bytes)."""
+        t0 = time.perf_counter()
+        staged, nbytes = self.enqueue_leaves(leaves, rotation)
         self._sync()
         return staged, time.perf_counter() - t0, nbytes
 
@@ -246,14 +363,16 @@ class StaticSelector:
 class TargetSelector:
     """Target-conditioned defaults (``declare variant match(device)``):
     calls routed to the card (``device``, or ``default`` — resident on the
-    APU) prefer ``device_impl``, with the usual fallback to ``ref``.  The
-    port's routers produce no host target yet, so there is no host
-    variant to choose."""
+    APU) prefer ``device_impl``, host-routed calls ``host_impl``, each with
+    the usual fallback to ``ref``.  No region registers a ``host`` variant,
+    so host-routed calls run ``ref`` and never a kernel."""
     device_impl: str = "hopper"
+    host_impl: str = "host"
 
     def select(self, region: Region, target: str, args, kwargs,
                size: Optional[int] = None) -> str:
-        return region.resolve(self.device_impl)
+        want = self.host_impl if target == "host" else self.device_impl
+        return region.resolve(want)
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +401,18 @@ class UnifiedPolicy(ComposedPolicy):
                          selector or StaticSelector("ref"))
 
 
+class HostPolicy(ComposedPolicy):
+    """dCPU model: every region, directive or not, runs on the host and no
+    kernel is launched.  Its fields belong on the CPU; CUDA operands would
+    pay a crossing on every call."""
+
+    def __init__(self, placer: Optional[Placer] = None,
+                 selector: Optional[Any] = None):
+        super().__init__("host", StaticRouter("host", "host"), NullStager(),
+                         placer or Placer(),
+                         selector or StaticSelector("ref"))
+
+
 class DiscretePolicy(ComposedPolicy):
     """Managed-memory dGPU model: offloaded regions run on ``device`` and
     pay real staging copies both ways (paper Fig 6)."""
@@ -300,6 +431,71 @@ class DiscretePolicy(ComposedPolicy):
                          placer or Placer(),
                          selector or StaticSelector("ref"))
         self.arena = arena
+
+
+class AdaptivePolicy(ComposedPolicy):
+    """Calibrated size-based routing inside an executor: the
+    ``TARGET_CUT_OFF`` clause as a policy axis.  Calls above the cutoff run
+    where the operands live (on the card), the rest on the host."""
+
+    def __init__(self, cutoff: int = DEFAULT_CUTOFF,
+                 placer: Optional[Placer] = None,
+                 selector: Optional[Any] = None):
+        super().__init__("adaptive", SizeRouter(cutoff), NullStager(),
+                         placer or Placer(),
+                         selector or StaticSelector("ref"))
+        #: {size: {"host": s, "device": s}} of the last calibration
+        self.calibration: Dict[int, Dict[str, float]] = {}
+
+    @property
+    def cutoff(self) -> int:
+        return self.router.cutoff
+
+    @cutoff.setter
+    def cutoff(self, value: int) -> None:
+        self.router.cutoff = value
+
+    def calibrate(self, target_region: Region,
+                  make_args: Callable[[int], tuple],
+                  sizes: Sequence[int] = (256, 1024, 4096, 16384, 65536),
+                  reps: int = 20, ledger: Optional[Ledger] = None) -> int:
+        """The paper's empirical TARGET_CUT_OFF: time the host and the
+        device executable (each with the variant this policy's selector
+        picks for that target) over a size ladder, set the cutoff at the
+        first size where the device wins, and record it on the region's
+        ledger row (and on ``ledger``'s row of the same name).
+
+        ``make_args(n)`` builds operands whose ``size_fn`` is ``n``, where
+        the application keeps them (on the card, the host executable pays
+        the crossing).  Each timed loop of ``reps`` calls follows one
+        warm-up call and ends in a device synchronise."""
+        r = target_region
+        self.calibration = {}
+        crossover = None
+        for n in sorted(sizes):
+            args = make_args(n)
+            ts = {}
+            for tgt in ("host", "device"):
+                impl = self.selector.select(r, tgt, args, {}, size=n)
+                call = r.executable(tgt, impl)
+                call(*args)
+                synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    call(*args)
+                synchronize()
+                ts[tgt] = (time.perf_counter() - t0) / reps
+            self.calibration[n] = ts
+            if ts["device"] < ts["host"]:
+                crossover = n
+                break
+        if crossover is None:
+            crossover = max(sizes) + 1
+        self.cutoff = crossover
+        r.ledger.set_cutoff(r.name, crossover)
+        if ledger is not None and ledger is not r.ledger:
+            ledger.set_cutoff(r.name, crossover)
+        return crossover
 
 
 # ---------------------------------------------------------------------------
@@ -349,18 +545,32 @@ class Executor:
         staging_b = 0
         stage = pol.stager.stages and r.offloaded and tgt != "host"
         staged_in = None
+        home = None
         if stage:
             (args, kwargs), s, b = pol.stager.stage_in(r, args, kwargs)
             staged_in = (args, kwargs)
             staging_s += s
             staging_b += b
+        elif tgt == "host":
+            home = _home_device((args, kwargs))
+            if home is not None:                    # the crossing to the CPU
+                t0 = time.perf_counter()
+                (args, kwargs), b = _move((args, kwargs), _CPU)
+                staging_s += time.perf_counter() - t0
+                staging_b += b
         t0 = time.perf_counter()
-        out = r.impl_fn(impl)(*args, **kwargs)
+        out = r.executable(tgt, impl)(*args, **kwargs)
         synchronize()
         compute_s = time.perf_counter() - t0
         if stage:
             out, s, b = pol.stager.stage_out(r, out, staged_in)
             staging_s += s
+            staging_b += b
+        elif home is not None:                      # ... and back
+            t0 = time.perf_counter()
+            out, b = _move(out, home)
+            synchronize()
+            staging_s += time.perf_counter() - t0
             staging_b += b
         out = pol.placer.place_result(r, out)
         device = r.offloaded if tgt == "default" else (tgt == "device")
@@ -374,3 +584,15 @@ class Executor:
         rep = self.ledger.coverage_report()
         rep["mode"] = self.mode
         return rep
+
+
+POLICIES = {
+    "unified": UnifiedPolicy,
+    "discrete": DiscretePolicy,
+    "host": HostPolicy,
+    "adaptive": AdaptivePolicy,
+}
+
+
+def make_policy(mode: str, **kw) -> ComposedPolicy:
+    return POLICIES[mode](**kw)

@@ -1,8 +1,8 @@
 """ExecutionPolicy construction for the LM drivers (counterpart of
 ``repro.launch.policy.lm_policy``): a CLI ``--policy`` choice becomes a
-concrete policy with the caller's variant selector.  The port has the
-``unified`` and ``discrete`` policies; ``host``, ``adaptive`` and ``auto``
-wait (ROADMAP A.1, A.10)."""
+concrete policy with the caller's variant selector.  The LM entry points
+offer the ``unified`` and ``discrete`` policies; ``host``, ``adaptive``
+and ``auto`` wait (ROADMAP A.6)."""
 from __future__ import annotations
 
 from repro_torch.core.regions import (ComposedPolicy, DiscretePolicy,

@@ -107,24 +107,29 @@ def make_serve_regions(cfg, params, *,
 
 
 def capture_prefill_program(regions: ServeRegions, example_batch,
-                            example_cache, name: str = "prefill_program"):
+                            example_cache, name: str = "prefill_program",
+                            selector=None):
     """Prefill as a RegionProgram: one ``PREFILL`` call, then the
-    ``KV_APPEND`` commit of the prompt's state."""
+    ``KV_APPEND`` commit of the prompt's state.  Capture runs the variants
+    ``selector`` picks (the executing policy's, so that on the card it
+    launches the kernel the replays launch)."""
     def prefill_fn(run, batch, cache):
         tok, cache = run(regions.prefill, batch, cache)
         cache = run(regions.kv_append, cache)
         return tok, cache
 
-    return capture(prefill_fn, example_batch, example_cache, name=name)
+    return capture(prefill_fn, example_batch, example_cache, name=name,
+                   selector=selector)
 
 
 def capture_decode_program(regions: ServeRegions, prompt_len: int, gen: int,
                            example_tok, example_cache,
-                           name: str = "decode_program"):
+                           name: str = "decode_program", selector=None):
     """The greedy decode loop as one RegionProgram: each generated token
     is one ``DECODE_STEP`` whose state flows into a ``KV_APPEND`` commit
     and on to the next token; positions are frozen constants.  Returns
-    the ``gen`` tokens (the first is the prefill's) as a tuple."""
+    the ``gen`` tokens (the first is the prefill's) as a tuple.  Capture
+    runs the variants ``selector`` picks."""
     def gen_loop(run, tok, cache):
         toks = [tok]
         for i in range(gen - 1):
@@ -133,7 +138,8 @@ def capture_decode_program(regions: ServeRegions, prompt_len: int, gen: int,
             toks.append(tok)
         return tuple(toks)
 
-    return capture(gen_loop, example_tok, example_cache, name=name)
+    return capture(gen_loop, example_tok, example_cache, name=name,
+                   selector=selector)
 
 
 # ---------------------------------------------------------------------------
@@ -192,8 +198,10 @@ def main(argv=None):
     batch = {"tokens": prompts}
 
     # -- captured-program path (the accounted serving spine) -------------
+    selector = ex.policy.selector
     prefill_prog = capture_prefill_program(
-        regions, batch, T.init_cache(cfg, args.batch, device))
+        regions, batch, T.init_cache(cfg, args.batch, device),
+        selector=selector)
     t0 = time.perf_counter()
     tok, cache = prefill_prog.replay(ex, batch,
                                      T.init_cache(cfg, args.batch, device))
@@ -202,7 +210,8 @@ def main(argv=None):
     # (under the discrete policy the replay handed them back in host pages)
     decode_prog = capture_decode_program(
         regions, args.prompt_len, args.gen,
-        *tree_place((tok, cache), MemSpace.DEVICE, device))
+        *tree_place((tok, cache), MemSpace.DEVICE, device),
+        selector=selector)
     t1 = time.perf_counter()
     toks = decode_prog.replay(ex, tok, cache)
     t_decode = time.perf_counter() - t1

@@ -177,8 +177,9 @@ def test_rwkv6_scan_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
 def test_serve_reduced_on_card_runs_the_kernel(cuda):
     """The serve entry point on the card (reduced rwkv6-7b, hd=16): the
     replayed tokens equal the uncaptured path's (asserted inside main),
-    prefill launched K5 once per layer, and the discrete policy, whose
-    regions hand back host pages, gives the same tokens."""
+    each prefill (the capture's, the replay's and the oracle's) launched K5
+    once per layer, and the discrete policy, whose regions hand back host
+    pages, gives the same tokens."""
     from repro_torch.configs.reduced import reduced
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.rwkv6_scan import kernel as K
@@ -187,12 +188,13 @@ def test_serve_reduced_on_card_runs_the_kernel(cuda):
     before = K.LAUNCHES["rwkv6_scan"]
     seq = main(["--reduced", "--prompt-len", "96", "--gen", "4"])
     assert seq.shape == (4, 4)
-    assert K.LAUNCHES["rwkv6_scan"] - before == 2 * n_layers   # replay + oracle
+    # capture + replay + oracle
+    assert K.LAUNCHES["rwkv6_scan"] - before == 3 * n_layers
     before = K.LAUNCHES["rwkv6_scan"]
     seq_d = main(["--reduced", "--prompt-len", "96", "--gen", "4",
                   "--policy", "discrete"])
     assert torch.equal(seq_d, seq)
-    assert K.LAUNCHES["rwkv6_scan"] - before == n_layers
+    assert K.LAUNCHES["rwkv6_scan"] - before == 2 * n_layers   # capture + replay
 
 
 def test_prefill_f32_through_the_kernel_matches_ref_on_card(cuda):
@@ -223,3 +225,111 @@ def test_prefill_f32_through_the_kernel_matches_ref_on_card(cuda):
     for a, b in zip(ch, cr):
         assert (a["S"] - b["S"]).abs().max() <= 1e-4 * b["S"].abs().max()
     assert (lh - lr).abs().max() <= 1e-4 * lr.abs().max()
+
+
+def test_async_replay_prefetches_on_a_side_stream(cuda, monkeypatch):
+    """A SIMPLE step captured on the card at 128^3, replayed under the
+    discrete policy from pinned host memory: the lookahead copies are
+    queued on a stream other than the compute stream, the replay equals the
+    synchronous one bit for bit, and it hides part of its staging (overlap
+    > 0, never above the staging it hides).  At 24^3 no op computes for
+    longer than the host takes to queue the next op's copies, so nothing
+    overlaps there."""
+    from repro_torch.cfd.grid import Grid
+    from repro_torch.cfd.simple import (SimpleConfig, SimpleFoam,
+                                        SimpleState, init_state)
+    from repro_torch.core.program import AsyncExecutor
+    from repro_torch.core.regions import (DiscretePolicy, Executor,
+                                          MigrationStager, TargetSelector,
+                                          UnifiedPolicy)
+    from repro_torch.core.umem import MemSpace, tree_place
+    cfg = SimpleConfig(Grid((128, 128, 128), device=cuda), nu=0.1,
+                       inner_max=2, tol_u=0.0, tol_p=0.0)
+    app = SimpleFoam(cfg, executor=Executor(
+        UnifiedPolicy(selector=TargetSelector())))
+    st, _ = app.time_step(init_state(cfg))
+    prog = app.capture_step(st)
+    pinned = SimpleState(*tree_place([getattr(st, f) for f in "uvwp"],
+                                     MemSpace.HOST), st.step)
+    streams = []
+    enqueue = MigrationStager.enqueue_leaves
+
+    def spy(self, leaves, rotation=None):
+        streams.append(torch.cuda.current_stream())
+        return enqueue(self, leaves, rotation)
+
+    monkeypatch.setattr(MigrationStager, "enqueue_leaves", spy)
+    sync = Executor(DiscretePolicy(selector=TargetSelector()))
+    asyn = AsyncExecutor(DiscretePolicy(selector=TargetSelector()))
+    s_sync, _ = app.replay_steps(prog, pinned, 2, sync)
+    compute = torch.cuda.current_stream()
+    s_async, _ = app.replay_steps(prog, pinned, 2, asyn)
+    assert any(s != compute for s in streams)
+    for f in "uvwp":
+        assert torch.equal(getattr(s_sync, f), getattr(s_async, f))
+    rep = asyn.report()
+    assert 0.0 < rep["overlap_s"] <= rep["staging_s"]
+    assert rep["overlap_fraction"] > 0
+
+
+def test_rotation_reuse_waits_for_the_compute_streams_reads(cuda):
+    """A bank buffer read late on the compute stream (behind a long device
+    sleep), retired, and acquired again on a side stream: the side stream's
+    write waits for that read, so the read sees the old values."""
+    from repro_torch.core.pool import BufferRotation, DeviceBufferPool
+    rot = BufferRotation(DeviceBufferPool(device=cuda), depth=2)
+    buf = rot.acquire((1 << 16,), torch.float32)
+    buf.fill_(1.0)
+    torch.cuda._sleep(50_000_000)               # ~25 ms before the read
+    seen = buf * 1.0                            # the compute stream's read
+    rot.retire()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        again = rot.acquire((1 << 16,), torch.float32)
+        again.fill_(7.0)
+    torch.cuda.synchronize()
+    assert again.data_ptr() == buf.data_ptr()
+    assert torch.equal(seen, torch.ones_like(seen))
+
+
+def test_host_routed_call_on_card_operands_crosses_and_books_it(cuda):
+    """Under the adaptive policy a call at or below the cutoff runs on the
+    CPU: its CUDA operands cross over and its result crosses back to the
+    card, both booked as staging bytes, and no kernel is launched."""
+    from repro_torch.cfd.dia import AMUL
+    from repro_torch.core.ledger import Ledger
+    from repro_torch.core.regions import (AdaptivePolicy, Executor,
+                                          TargetSelector)
+    from repro_torch.kernels.stencil_spmv import kernel as SK, ref as SR
+    diag, x = torch.rand(8, 8, 8, device=cuda), torch.rand(8, 8, 8,
+                                                           device=cuda)
+    off = torch.rand(6, 8, 8, 8, device=cuda)
+    ex = Executor(AdaptivePolicy(1 << 30, selector=TargetSelector()),
+                  Ledger("t"))
+    before = SK.LAUNCHES["stencil_spmv"]
+    y = ex.run(AMUL, diag, off, x)
+    assert y.device.type == "cuda"
+    assert SK.LAUNCHES["stencil_spmv"] == before
+    torch.testing.assert_close(y, SR.stencil_spmv(diag, off, x))
+    row = ex.ledger.regions[AMUL.name]
+    assert (row.host_calls, row.device_calls) == (1, 0)
+    assert row.impl_counts == {"ref": 1}
+    assert row.staging_bytes == 4 * (diag.numel() + off.numel() + 2 * x.numel())
+    assert row.staging_s > 0
+
+
+@pytest.mark.parametrize("argv", [["--policy", "all", "--calibrate"],
+                                  ["--policy", "discrete", "--replay", "async"],
+                                  ["--policy", "adaptive", "--replay", "sync"]])
+def test_cfd_cli_runs_every_policy_and_replay_on_card(cuda, argv):
+    """The entry point at 16^3 on the card: host on the CPU, the other
+    policies on the card; a replayed step captured from a discrete step's
+    host-page state."""
+    from repro_torch.cfd.__main__ import main
+    out = main(["--grid", "16", "--steps", "1"] + argv)
+    rows = out if isinstance(out, list) else [out]
+    for row in rows:
+        assert row["device"] == ("cpu" if row["policy"] == "host" else "cuda")
+        assert row["fom_s_per_step"] > 0
+    if "--replay" in argv:
+        assert 0.0 <= rows[0]["overlap_fraction"] <= 1.0
