@@ -113,14 +113,18 @@ REPLACES = {
 }
 
 
+Timing = collections.namedtuple("Timing", "ms p10 p90")
+
+
 def time_ms(fn, reps=25, warmup=3):
-    """Median device time (ms) of one call: CUDA events around each call,
-    enqueued behind a ~50 ms device sleep, so the host's launch overhead
-    (tens of microseconds for a Triton launch) is hidden behind queued
-    work and the events bracket the device's execution alone.  Before each
-    call a 256 MB buffer is written outside the events, so every call finds
-    the 50 MB L2 cold, as the solver finds a field after other kernels have
-    touched other fields."""
+    """Device time (ms) of one call: the median of ``reps`` calls and their
+    10th and 90th percentiles.  CUDA events around each call, enqueued
+    behind a ~50 ms device sleep, so the host's launch overhead (tens of
+    microseconds for a Triton launch) is hidden behind queued work and the
+    events bracket the device's execution alone.  Before each call a 256 MB
+    buffer is written outside the events, so every call finds the 50 MB L2
+    cold, as the solver finds a field after other kernels have touched
+    other fields."""
     flush = torch.empty(64 * 2**20, device="cuda")
     for _ in range(warmup):
         fn()
@@ -134,7 +138,31 @@ def time_ms(fn, reps=25, warmup=3):
         fn()
         end.record()
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    times = [s.elapsed_time(e) for s, e in events]
+    deciles = statistics.quantiles(times, n=10, method="inclusive")
+    return Timing(statistics.median(times), deciles[0], deciles[-1])
+
+
+def spread(t):
+    """'median [p10, p90]' of a Timing."""
+    return f"{t.ms:.4f} [{t.p10:.4f}, {t.p90:.4f}]"
+
+
+def timing_keys(t, lib_t):
+    """The ``kernels`` line's times of a kernel and of its library call
+    (None where there is none), each a median with its 10th and 90th
+    percentiles."""
+    keys = dict(ms=t.ms, ms_p10=t.p10, ms_p90=t.p90)
+    for k in ("ms", "p10", "p90"):
+        name = "library_ms" if k == "ms" else f"library_ms_{k}"
+        keys[name] = None if lib_t is None else getattr(lib_t, k)
+    return keys
+
+
+def dilu_ms(ledger):
+    """ms a call of the ``precondition(DILU)`` region in a ledger."""
+    row = ledger.regions["precondition(DILU)"]
+    return row.compute_s / row.calls * 1e3, row.calls
 
 
 def sass_counts(lib, opcode):
@@ -415,14 +443,14 @@ def main(argv=None):
             line = (f"[kernel] {kname} {str(dt)[6:]} {'x'.join(map(str, shape))}"
                     f" max_abs_err {err:.3e} ok")
             if shape == (N, N, N):
-                ms = time_ms(lambda: kfn(*kargs))
-                plain_ms = time_ms(lambda: pfn(*kargs))
-                lib_ms = time_ms(lambda: lib(*kargs)) if lib else None
+                t = time_ms(lambda: kfn(*kargs))
+                plain_ms = time_ms(lambda: pfn(*kargs)).ms
+                lib_t = time_ms(lambda: lib(*kargs)) if lib else None
                 bound_ms, bound_by = bound(nbytes, flops)
-                line += (f" | ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                         f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} "
-                         f"bound_ms {bound_ms:.4f} ({bound_by}) "
-                         f"share_of_bound {bound_ms / ms:.3f}")
+                line += (f" | ms {spread(t)} plain_ms {plain_ms:.4f} "
+                         f"library_ms {'-' if lib_t is None else spread(lib_t)}"
+                         f" bound_ms {bound_ms:.4f} ({bound_by}) "
+                         f"share_of_bound {bound_ms / t.ms:.3f}")
                 if dt == torch.float32:
                     records[kname] = dict(
                         name=kname,
@@ -431,9 +459,22 @@ def main(argv=None):
                                 if kname in stencil_cases else
                                 "src/repro_torch/kernels/fused_field/kernel.py"),
                         replaces=REPLACES[kname], launches=0, max_abs_err=err,
-                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=lib_ms)
+                        **timing_keys(t, lib_t), plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
             print(line)
+        # K2/K3 read the mask, never the parity of i+j+k: a random one,
+        # from its own generator so the other checks' inputs stay as they were
+        g_mask = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        red_rand = torch.rand(shape, generator=g_mask, device=dev) < 0.5
+        for kname in ("rb_dilu_forward", "rb_dilu_backward"):
+            kargs = (rdiag, red_rand, off, x)
+            got = getattr(SK, kname)(*kargs)
+            want = getattr(SR, kname)(*kargs)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **KERNEL_TOL)
+            print(f"[kernel] {kname} float32 {'x'.join(map(str, shape))} "
+                  f"random mask max_abs_err "
+                  f"{(got - want).abs().max().item():.3e} ok")
 
     # K5 at the serve path's prefill shape and at two ragged ones (T not a
     # multiple of the kernel's 64-row chunk, the last chunk of 8 and of 40
@@ -466,22 +507,22 @@ def main(argv=None):
             line = (f"[kernel] rwkv6_scan {str(dt)[6:]} "
                     f"{'x'.join(map(str, dims))} max_abs_err {err:.3e} ok")
             if Tn == SP:
-                ms = time_ms(lambda: RK.rwkv6_scan(*kargs))
+                t = time_ms(lambda: RK.rwkv6_scan(*kargs))
                 plain_ms = time_ms(lambda: RR.rwkv6_scan(*kargs), reps=5,
-                                   warmup=1)
+                                   warmup=1).ms
                 bound_ms, bound_by = bound(*scan_work(
                     B, Tn, H, hd, kargs[0].element_size()))
-                line += (f" | ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                         f"- bound_ms {bound_ms:.4f} ({bound_by}) "
-                         f"share_of_bound {bound_ms / ms:.3f}")
+                line += (f" | ms {spread(t)} plain_ms {plain_ms:.4f} "
+                         f"library_ms - bound_ms {bound_ms:.4f} ({bound_by}) "
+                         f"share_of_bound {bound_ms / t.ms:.3f}")
                 if dt == torch.bfloat16:        # what the serve path feeds
                     records["rwkv6_scan"] = dict(
                         name="rwkv6_scan", route="cuda",
                         source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                         replaces=REPLACES["rwkv6_scan"], launches=0,
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=None)
+                        max_abs_err=err, **timing_keys(t, None),
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
             print(line)
     del r32, k32, v32, logw, u, S0, kargs, out, S, want_out, want_S
 
@@ -520,6 +561,8 @@ def main(argv=None):
           f"{total:.4f} s): " + "; ".join(
               f"{r.name} {r.compute_s:.4f} ({r.compute_s / total:.1%}, "
               f"{r.calls} calls)" for r in rows if r.calls))
+    print("[main] precondition(DILU) %.4f ms a call (%d calls)"
+          % dilu_ms(app.ledger))
     for f in "uvwp":
         if not torch.isfinite(getattr(st, f)).all():
             raise AssertionError(f"field {f} is not finite")
@@ -690,6 +733,8 @@ def main(argv=None):
         print(f"[fused] {precond} on the {N}^3 pressure system: "
               f"{r.iters} iterations, residual {r.initial_residual:.3e} -> "
               f"{r.final_residual:.3e}, {t * 1e3:.2f} ms (factor included)")
+    print("[fused] pbicgstab_regions at 3 iterations: precondition(DILU) "
+          "%.4f ms a call (%d calls)" % dilu_ms(ldg))
     print(f"[fused] launches {json.dumps(cnt)}; DILU vs pbicgstab_regions "
           f"at 3 iterations: iterations equal, max_abs_err {err:.3e} of "
           f"max|x| {rr.x.abs().max().item():.3e} (rtol {SOLVE_TOL['rtol']}, "

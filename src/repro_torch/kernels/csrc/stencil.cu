@@ -10,24 +10,36 @@
 //
 // What bounds them on an H100: bytes.  Per cell K1 moves 36 B (diag, six
 // off bands, x, y in f32) for 13 flops; K2/K3 move 37 B (rdiag, six off
-// bands, r or y, the result in f32, red in 1 B).  That is ~0.4 flop/B,
-// two orders of magnitude under the card's ridge point, so the design
-// goal is one pass over HBM with coalesced loads and nothing else.
+// bands, r or y, the result in f32, red in 1 B).  K2 uses only the black
+// cells' off values and K3 only the red cells', but the colours alternate
+// at a 4-B stride along k, so every 32-B sector of a band holds both and
+// the card reads every band whole: 37 B it is.  That is ~0.4 flop/B, two
+// orders of magnitude under the card's ridge point, so the design goal is
+// one pass over HBM with coalesced loads and nothing else.
 //
 // Design:
-// * One thread per cell; (i,j,k) from the flat row-major index, so a warp
-//   reads 32 consecutive cells of every band (coalesced).
+// * K1: one thread per cell; (i,j,k) from the flat row-major index, so a
+//   warp reads 32 consecutive cells of every band (coalesced).
+// * K2/K3: one thread per k-adjacent pair of cells of a row (the row's
+//   last cell has no partner when nz is odd).  Under the checkerboard
+//   exactly one cell of a pair is swept (K2: black, K3: red), so every
+//   lane runs one face sum; with one thread per cell and a branch on the
+//   colour, half the lanes of every warp idled through it.  The colour is
+//   read from `red`, never from the parity of i+j+k: a pair with two
+//   swept cells (any other mask) takes a second face sum.
 // * Each neighbour is guarded by its 3-D bound and skipped outside the
 //   domain.  The TPU kernel instead read x through a flat stride with a
 //   padded copy of x (three padded arrays per call) and relied on
 //   off[f] == 0 at the walls to cancel the wrapped neighbour; here nothing
 //   is read out of range, no padded copy is made, and a NaN*0 from a
 //   wrapped neighbour cannot occur.
-// * Neighbour reads of x (K1), red*r*rdiag (K2) and black*y (K3) hit the
-//   same lines as the centre reads of nearby threads and are served by
-//   L1/L2; K2 recomputes red*r*rdiag per neighbour from global memory
-//   instead of staging a window in shared memory.
-// * Sums run in the reference's order (diag*x first, then faces
+// * Neighbour values (x for K1, red*r*rdiag for K2, black*y for K3) are
+//   read at each face, all loads issued at once (none waits on red), and
+//   hit the lines of nearby threads' centre reads in L1/L2.  Computing
+//   each value once into a shared-memory window (2.5-D blocking along i,
+//   with or without a cp.async prefetch of the next plane) measured no
+//   faster on the H100, so the kernels do not (PERF.md, section 6).
+// * Sums run in the reference's order (diag*x first for K1, then faces
 //   -x,+x,-y,+y,-z,+z) with explicitly rounded multiply and add
 //   (__fmul_rn/__fadd_rn: no FMA contraction), so each cell reproduces the
 //   PyTorch plain version (ref.py) operation for operation.
@@ -84,49 +96,72 @@ stencil_spmv_kernel(const float* __restrict__ diag, const float* __restrict__ of
                     [x](long long q) { return x[q]; });
 }
 
-// w = red ? r*rdiag : (r - sum_f off[f]*(red*r*rdiag)[nb_f]) * rdiag
-__global__ void __launch_bounds__(kThreads)
-rb_dilu_forward_kernel(const float* __restrict__ rdiag,
-                       const uint8_t* __restrict__ red,
-                       const float* __restrict__ off,
-                       const float* __restrict__ r, float* __restrict__ w,
-                       int nx, int ny, int nz) {
-  Cell p;
-  if (!cell_of(nx, ny, nz, &p)) return;
-  const long long c = p.c;
-  if (red[c]) {
-    w[c] = __fmul_rn(r[c], rdiag[c]);
-    return;
-  }
-  const float acc = face_sum(0.0f, off, p, nx, ny, nz, [=](long long q) {
-    return red[q] ? __fmul_rn(r[q], rdiag[q]) : 0.0f;
-  });
-  w[c] = __fmul_rn(__fsub_rn(r[c], acc), rdiag[c]);
+// K2 (kForward) and K3 in one body.  A half-sweep updates its "swept"
+// cells (K2: black, K3: red) from the neighbour field v (K2: red ? r*rdiag
+// : 0; K3: red ? 0 : y) and passes the others through (K2: r*rdiag, K3:
+// y).  One thread takes a k-adjacent pair of cells.
+template <bool kForward>
+__device__ __forceinline__ bool swept(bool is_red) {
+  return kForward ? !is_red : is_red;
 }
 
-// z = red ? y - rdiag * sum_f off[f]*(black*y)[nb_f] : y
-__global__ void __launch_bounds__(kThreads)
-rb_dilu_backward_kernel(const float* __restrict__ rdiag,
-                        const uint8_t* __restrict__ red,
-                        const float* __restrict__ off,
-                        const float* __restrict__ y, float* __restrict__ z,
-                        int nx, int ny, int nz) {
-  Cell p;
-  if (!cell_of(nx, ny, nz, &p)) return;
-  const long long c = p.c;
-  if (!red[c]) {
-    z[c] = y[c];
-    return;
-  }
-  const float acc = face_sum(0.0f, off, p, nx, ny, nz, [=](long long q) {
-    return red[q] ? 0.0f : y[q];
-  });
-  z[c] = __fsub_rn(y[c], __fmul_rn(rdiag[c], acc));
+template <bool kForward>
+__device__ __forceinline__ float pass_value(float x, float rd) {
+  return kForward ? __fmul_rn(x, rd) : x;
 }
 
-inline unsigned blocks_for(int nx, int ny, int nz) {
-  const long long n = (long long)nx * ny * nz;
-  return (unsigned)((n + kThreads - 1) / kThreads);
+template <bool kForward>
+__device__ __forceinline__ float sweep_value(float x, float rd, float acc) {
+  return kForward ? __fmul_rn(__fsub_rn(x, acc), rd)
+                  : __fsub_rn(x, __fmul_rn(rd, acc));
+}
+
+template <bool kForward>
+__global__ void __launch_bounds__(kThreads)
+rb_dilu_pair_kernel(const float* __restrict__ rdiag,
+                    const uint8_t* __restrict__ red,
+                    const float* __restrict__ off,
+                    const float* __restrict__ x, float* __restrict__ out,
+                    int nx, int ny, int nz) {
+  const int pairs = (nz + 1) / 2;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)nx * ny * pairs) return;
+  const long long row = t / pairs;
+  Cell a;
+  a.k = 2 * (int)(t % pairs);
+  a.j = (int)(row % ny);
+  a.i = (int)(row / ny);
+  a.c = row * nz + a.k;
+  const bool has1 = a.k + 1 < nz;
+  const bool s0 = swept<kForward>(red[a.c] != 0);
+  const bool s1 = has1 && swept<kForward>(red[a.c + 1] != 0);
+  auto v = [=](long long q) {        // all loads at once: none waits on red
+    const float xq = x[q], rdq = kForward ? rdiag[q] : 0.0f;
+    const bool rq = red[q] != 0;
+    return kForward ? (rq ? __fmul_rn(xq, rdq) : 0.0f) : (rq ? 0.0f : xq);
+  };
+  // the face sum of the pair's first swept cell: one per lane
+  Cell b = a;
+  if (!s0) { b.k += 1; b.c += 1; }
+  float acc_b = 0.0f, acc_1 = 0.0f;
+  if (s0 || s1) acc_b = face_sum(0.0f, off, b, nx, ny, nz, v);
+  if (s0 && s1) {                        // two swept cells: not a checkerboard
+    Cell c1 = a;
+    c1.k += 1;
+    c1.c += 1;
+    acc_1 = face_sum(0.0f, off, c1, nx, ny, nz, v);
+  }
+  out[a.c] = s0 ? sweep_value<kForward>(x[a.c], rdiag[a.c], acc_b)
+                : pass_value<kForward>(x[a.c], rdiag[a.c]);
+  if (has1) {
+    const long long c = a.c + 1;
+    out[c] = s1 ? sweep_value<kForward>(x[c], rdiag[c], s0 ? acc_1 : acc_b)
+                : pass_value<kForward>(x[c], rdiag[c]);
+  }
+}
+
+inline unsigned blocks_for(long long threads) {
+  return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -137,7 +172,7 @@ extern "C" {
 
 int stencil_spmv_f32(const float* diag, const float* off, const float* x,
                      float* y, int nx, int ny, int nz, cudaStream_t stream) {
-  const unsigned blocks = blocks_for(nx, ny, nz);
+  const unsigned blocks = blocks_for((long long)nx * ny * nz);
   if (blocks) {
     stencil_spmv_kernel<<<blocks, kThreads, 0, stream>>>(diag, off, x, y,
                                                           nx, ny, nz);
@@ -148,10 +183,10 @@ int stencil_spmv_f32(const float* diag, const float* off, const float* x,
 int rb_dilu_forward_f32(const float* rdiag, const uint8_t* red,
                         const float* off, const float* r, float* w,
                         int nx, int ny, int nz, cudaStream_t stream) {
-  const unsigned blocks = blocks_for(nx, ny, nz);
+  const unsigned blocks = blocks_for((long long)nx * ny * ((nz + 1) / 2));
   if (blocks) {
-    rb_dilu_forward_kernel<<<blocks, kThreads, 0, stream>>>(rdiag, red, off,
-                                                             r, w, nx, ny, nz);
+    rb_dilu_pair_kernel<true><<<blocks, kThreads, 0, stream>>>(
+        rdiag, red, off, r, w, nx, ny, nz);
   }
   return (int)cudaGetLastError();
 }
@@ -159,10 +194,10 @@ int rb_dilu_forward_f32(const float* rdiag, const uint8_t* red,
 int rb_dilu_backward_f32(const float* rdiag, const uint8_t* red,
                          const float* off, const float* y, float* z,
                          int nx, int ny, int nz, cudaStream_t stream) {
-  const unsigned blocks = blocks_for(nx, ny, nz);
+  const unsigned blocks = blocks_for((long long)nx * ny * ((nz + 1) / 2));
   if (blocks) {
-    rb_dilu_backward_kernel<<<blocks, kThreads, 0, stream>>>(rdiag, red, off,
-                                                              y, z, nx, ny, nz);
+    rb_dilu_pair_kernel<false><<<blocks, kThreads, 0, stream>>>(
+        rdiag, red, off, y, z, nx, ny, nz);
   }
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,8 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("shape", [(37, 29, 23), (64, 64, 64)])
+@pytest.mark.parametrize("shape", [(37, 29, 23), (64, 64, 64),
+                                   (200, 200, 200)])
 @pytest.mark.parametrize("name", ["stencil_spmv", "rb_dilu_forward",
                                   "rb_dilu_backward"])
 def test_stencil_kernel_matches_plain(cuda, name, shape):
@@ -40,6 +41,38 @@ def test_stencil_kernel_matches_plain(cuda, name, shape):
     assert SK.LAUNCHES[name] == before + 1
     torch.testing.assert_close(got, getattr(SR, name)(*args),
                                rtol=3e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(37, 29, 23), (200, 200, 200), (5, 7, 3),
+                                   (1, 3, 2), (11, 18, 70)])
+@pytest.mark.parametrize("name", ["rb_dilu_forward", "rb_dilu_backward"])
+def test_rb_dilu_kernel_equals_plain_under_a_random_mask(cuda, name, shape,
+                                                         offset):
+    """K2/K3 under a random red mask (they read the mask, never the parity
+    of i+j+k), with every operand starting ``offset`` elements into its
+    buffer (so no band starts on 16 bytes when it is 1): equal to the plain
+    version bit for bit, and one launch a call."""
+    import numpy as np
+    from repro_torch.kernels.stencil_spmv import kernel as SK, ref as SR
+    rng = np.random.RandomState(5)
+
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a).reshape(-1))
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=cuda)
+        buf[offset:] = t.to(cuda)
+        return buf[offset:].view(a.shape)
+
+    rdiag = put(rng.rand(*shape).astype(np.float32) + 0.5)
+    off = put(rng.rand(6, *shape).astype(np.float32) - 0.5)
+    x = put(rng.rand(*shape).astype(np.float32))
+    red = put(rng.rand(*shape) < 0.5)
+    before = SK.LAUNCHES[name]
+    got = getattr(SK, name)(rdiag, red, off, x)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES[name] == before + 1
+    want = getattr(SR, name)(rdiag, red, off, x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
