@@ -17,8 +17,13 @@ Run from the root of a checkout.  Phases, each printing its own lines:
 4. the CFD path: SIMPLE steps of the 3-D lid-driven cavity at 200^3
    (8.0M cells, size M of the OpenFOAM HPC Technical Committee's
    ``Lid-driven_cavity-3d`` benchmark) under the unified policy through
-   the ``hopper`` variants, with every kernel's launch count, then one step
-   held against the ``ref`` step;
+   the ``hopper`` variants, every region a compiled executable
+   (``[compile]``: first-call seconds and recompiles per region), with
+   every kernel's launch count; the same steps run eagerly
+   (``disable_compile``) in turns with the compiled ones, for the eager
+   FOM and per-region ms beside the compiled; then one step held against
+   the ``ref`` step, and against the eager ``hopper`` step with equal
+   launch counts;
 5. the four memory models of the paper's Fig 5 (``[policies]``, with the
    ``[discrete]`` line): one warm-up and one timed step each under host
    (fields on the CPU, no kernel), discrete (real staging copies), unified
@@ -30,21 +35,37 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    the card and replayed under the discrete policy synchronously and with
    lookahead copies on a side stream, bit for bit equal, and under the
    unified policy, held against the eager step;
-8. the serve path: ``rwkv6-7b`` at full width (32 layers, random weights
+8. the serve path: ``rwkv6-7b`` at full width and depth (random weights
    from ``--seed``), batch 4, prompt 1024, 32 greedy tokens, through the
    captured prefill and decode programs under the unified policy with the
-   ``hopper`` variants; K5's launches, the tokens against the uncaptured
-   path, the ``hopper`` prefill against the ``ref`` prefill, the
-   discrete policy at 8 tokens, and the ``hopper`` prefill against the
-   ``ref`` prefill again with the weights widened to f32;
-9. a ``kernels`` JSON line (kernels of both paths) and a ``port_status``
+   ``hopper`` variants, compiled (each layer kind compiled once, a custom
+   op in the step's graph: ``transformer.LayerOp``); the same eagerly
+   beside it; K5's launches, the tokens against the uncaptured (compiled)
+   path, peak memory with and without the uncaptured decode's donated
+   cache, the compiled prefill (logits and every layer's state) and one
+   compiled decode step's logits against the same functions run eagerly,
+   the ``hopper`` prefill against the ``ref`` prefill, the discrete policy
+   at 8 tokens, and the ``hopper`` prefill against the ``ref`` prefill
+   again with the weights widened to f32 (these two held eagerly, as
+   before regions were compiled);
+9. ``[batch]``: ``RegionProgram.replay_batch`` of the decode program
+   (4 tokens) of ``rwkv6-7b`` at full width and depth over 2 request
+   groups of 4, against each group's solo replay (the first decoded token
+   equal in every row), and of a captured PBiCGStab solve at 200^3 over 2
+   right-hand sides, whose vmap rules launch K1-K4, against the solo
+   replays;
+10. a ``kernels`` JSON line (kernels of both paths) and a ``port_status``
    JSON line (every TPU kernel of the reference and whether it is ported).
 
 Each path's kernel launches are counted from 0 just before it and read
-just after, and so are the calls of the kernels' plain versions with
-operands on the card (the ``ref`` variant of a region that has a kernel
-variant, or a function of a kernel package's ``ref.py``): on every card
-path, capture included, that count must stay 0.
+just after, and so are the plain versions of the kernels with operands on
+the card (the ``ref`` variant of a region that has a kernel variant, or a
+function of a kernel package's ``ref.py``): a plain version called
+eagerly counts at each call, one traced into a compiled graph counts when
+it is traced; on every card path, capture included, that count must stay
+0.  A region variant run eagerly on the card outside ``disable_compile``
+counts too, and must stay 0: every region runs compiled.  Every compiled
+executable recompiles at most twice over the run.
 
 The last line is ``{"ok": true, "device": {...}}``.  Nothing is caught: a
 failed phase ends the run with a non-zero exit code and no result line.
@@ -97,8 +118,16 @@ POLICIES = ("host", "discrete", "unified", "adaptive")
 CFD_KERNELS = ("stencil_spmv", "rb_dilu_forward", "rb_dilu_backward",
                "fused_axpy", "fused_axpbypz")
 
-#: calls of the kernels' plain versions with operands on the card
+#: the kernels' plain versions with operands on the card: eager calls, and
+#: traces into a compiled graph
 PLAIN = collections.Counter()
+#: region variants run eagerly on the card outside ``disable_compile``
+EAGER = collections.Counter()
+#: every Region made in this run (for the recompile check)
+REGIONS = []
+#: decode program length of the ``[batch]`` phase (its composite unrolls
+#: every step)
+BATCH_GEN = 4
 
 #: where each kernel of the port replaces a TPU kernel of the reference
 REPLACES = {
@@ -228,16 +257,38 @@ def rel_errs(logits_a, caches_a, logits_b, caches_b):
     return s_rel, l_rel
 
 
+def first_diff(a, b):
+    """Per row of two [B, gen] token arrays, the first step where they
+    differ (None where they never do)."""
+    out = []
+    for ra, rb in zip(a, b):
+        d = (ra != rb).nonzero()
+        out.append(int(d[0]) if len(d) else None)
+    return out
+
+
 def on_card(tree):
     from torch.utils._pytree import tree_leaves
     return any(isinstance(t, torch.Tensor) and t.is_cuda
                for t in tree_leaves(tree))
 
 
-def count_plain_calls(Region, ref_modules):
+@torch._dynamo.assume_constant_result
+def note_plain(key):
+    """Count one plain-version call in ``PLAIN``: run at each eager call,
+    and once when traced into a compiled graph (Dynamo calls a function
+    marked ``assume_constant_result`` at trace time and keeps its
+    result)."""
+    PLAIN[key] += 1
+    return 0
+
+
+def count_plain_calls(Region, ref_modules, compile_disabled):
     """Count in ``PLAIN`` every call with operands on the card of a kernel
     package's plain function and of the ``ref`` variant of a region that
-    has a ``hopper`` variant (what a ``hopper`` call falls back to)."""
+    has a ``hopper`` variant (what a ``hopper`` call falls back to), eager
+    or traced; count in ``EAGER`` every region variant run eagerly on the
+    card outside ``disable_compile``; keep every Region in ``REGIONS``."""
     for mod in ref_modules:
         for name in [n for n in dir(mod) if not n.startswith("_")]:
             fn = getattr(mod, name)
@@ -247,28 +298,76 @@ def count_plain_calls(Region, ref_modules):
 
             def counted(*a, _fn=fn, _key=f"{mod.__name__}.{name}", **k):
                 if on_card((a, k)):
-                    PLAIN[_key] += 1
+                    note_plain(_key)
                 return _fn(*a, **k)
             setattr(mod, name, counted)
     impl_fn = Region.impl_fn
 
     def spied(self, name="ref"):
         fn = impl_fn(self, name)
-        if name != "ref" or "hopper" not in self.variants:
-            return fn
+        plain_key = f"region {self.name} ref" \
+            if name == "ref" and "hopper" in self.variants else None
+        eager_key = f"region {self.name} {name}"
 
         def call(*a, **k):
             if on_card((a, k)):
-                PLAIN[f"region {self.name} ref"] += 1
+                if plain_key is not None:
+                    note_plain(plain_key)
+                if not torch.compiler.is_compiling() \
+                        and not compile_disabled():
+                    EAGER[eager_key] += 1
             return fn(*a, **k)
         return call
     Region.impl_fn = spied
+    post_init = Region.__post_init__
+
+    def kept(self):
+        post_init(self)
+        REGIONS.append(self)
+    Region.__post_init__ = kept
 
 
 def check_plain(path):
     if PLAIN:
         raise AssertionError(f"{path}: plain versions ran on the card: "
                              f"{dict(PLAIN)}")
+    if EAGER:
+        raise AssertionError(f"{path}: regions ran eagerly on the card: "
+                             f"{dict(EAGER)}")
+
+
+def reset_plain():
+    PLAIN.clear()
+    EAGER.clear()
+
+
+def compile_rows(regions):
+    """``name first-call s (compiles)`` of each compiled executable of
+    ``regions``."""
+    rows = []
+    for r in regions:
+        for (kind, impl, don), st in r.compile_stats.items():
+            rows.append(f"{r.name}[{impl}{', host' if kind == 'host' else ''}"
+                        f"{', donated' if don else ''}] {st.first_call_s:.2f} s"
+                        f" ({st.compiles} compiled)")
+    return "; ".join(rows)
+
+
+def layer_rows():
+    """``label first-call s (compiles)`` of each compiled layer
+    (``transformer.LayerOp``)."""
+    from repro_torch.models.transformer import LAYER_OPS
+    return "; ".join(f"{op.label} {op.stats.first_call_s:.2f} s "
+                     f"({op.stats.compiles} compiled)"
+                     for op in LAYER_OPS.values() if op.stats.calls)
+
+
+def compiles_of(regions):
+    from repro_torch.models.transformer import LAYER_OPS
+    out = {(id(r), k): st.compiles for r in regions
+           for k, st in r.compile_stats.items()}
+    out.update({op.label: op.stats.compiles for op in LAYER_OPS.values()})
+    return out
 
 
 def stencil_csr(diag, off):
@@ -319,6 +418,7 @@ def main(argv=None):
         raise SystemExit(f"chip_smoke: no src/repro_torch beside {__file__}; "
                          "run it from a checkout of the repository")
     sys.path.insert(0, str(src))
+    from repro_torch.cfd import fvm
     from repro_torch.cfd.dia import DiaMatrix
     from repro_torch.cfd.grid import Grid, interior_mask, NEIGHBORS
     from repro_torch.cfd.precond import rb_dilu_factor
@@ -327,9 +427,12 @@ def main(argv=None):
     from repro_torch.cfd.solvers import (make_solver_regions,
                                          pbicgstab_regions, solve)
     from repro_torch.core.program import AsyncExecutor
+    from repro_torch.core.program import capture
     from repro_torch.core.regions import (DiscretePolicy, Executor, Region,
                                           StaticSelector, TargetSelector,
-                                          UnifiedPolicy, make_policy)
+                                          UnifiedPolicy, compile_disabled,
+                                          compile_region_fn, disable_compile,
+                                          make_policy)
     from repro_torch.kernels import build
     from repro_torch.configs.registry import get_config
     from repro_torch.core.ledger import Ledger
@@ -341,7 +444,14 @@ def main(argv=None):
     from repro_torch.launch import serve as SV
     from repro_torch.models import transformer as T
     from repro_torch.models.params import param_count
-    count_plain_calls(Region, (SR, FR, RR))
+    from repro_torch.train import step as train_step
+    count_plain_calls(Region, (SR, FR, RR), compile_disabled)
+
+    t_start = time.perf_counter()
+
+    def stamp(done):
+        print(f"[time] {done} done, {time.perf_counter() - t_start:.0f} s "
+              f"into the run", flush=True)
 
     # -- 1. the card ----------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -381,6 +491,8 @@ def main(argv=None):
     if len(hmma) != 2 or min(hmma.values()) <= 0:
         raise AssertionError("K5's f32 and bf16 kernels must both run on the "
                              f"tensor cores (HMMA): {hmma}")
+
+    stamp("build")
 
     # -- 3. kernels vs plain, then timed --------------------------------
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -526,6 +638,8 @@ def main(argv=None):
             print(line)
     del r32, k32, v32, logw, u, S0, kargs, out, S, want_out, want_S
 
+    stamp("kernels")
+
     # -- 4. CFD path: unified + hopper at 200^3 -------------------------
     def reset_launches():
         for table in (SK.LAUNCHES, FK.LAUNCHES, RK.LAUNCHES):
@@ -537,21 +651,44 @@ def main(argv=None):
 
     grid = Grid((N, N, N))
     cfg = SimpleConfig(grid, nu=0.1, inner_max=25)
-    app = SimpleFoam(cfg, executor=Executor(
-        UnifiedPolicy(selector=StaticSelector("hopper"))))
-    reset_launches()
-    PLAIN.clear()
-    st = init_state(cfg)
-    st, fom_warm, _ = app.run_steps(st, 1)               # warm-up step
-    app.ledger.reset_timings()
-    st, fom, m = app.run_steps(st, 2)
-    counts = launches()
+
+    def hopper_app(c):
+        """An app under unified/hopper and the Regions it made."""
+        n0 = len(REGIONS)
+        a = SimpleFoam(c, executor=Executor(
+            UnifiedPolicy(selector=StaticSelector("hopper"))))
+        return a, REGIONS[n0:]
+
+    def main_run(a):
+        """One warm-up step, then 2 timed steps, from the initial state:
+        (state, FOM, metrics, warm-up s, launches of the 3 steps, compiles
+        after the warm-up)."""
+        reset_launches()
+        s0, warm_s, _ = a.run_steps(init_state(cfg), 1)
+        a.ledger.reset_timings()
+        warm = compiles_of(REGIONS)
+        s0, fom_, m_ = a.run_steps(s0, 2)
+        return s0, fom_, m_, warm_s, launches(), warm
+
+    def region_ms(a):
+        return {r.name: r.compute_s / r.calls * 1e3
+                for r in a.ledger.regions.values() if r.calls}
+
+    app, app_regions = hopper_app(cfg)
+    reset_plain()
+    st, fom, m, fom_warm, counts, warm = main_run(app)
     check_plain("[main]")
+    if compiles_of(REGIONS) != warm:
+        raise AssertionError("[main]: a region recompiled after the warm-up "
+                             "step")
     rep = app.ex.report()
-    print(f"[main] unified/hopper {N}^3 inner_max=25: FOM {fom:.4f} s/step "
-          f"(warm-up step {fom_warm:.4f} s) res_u {m['res_u']:.3e} "
-          f"iters_u {m['iters_u']} res_p {m['res_p']:.3e} iters_p "
-          f"{m['iters_p']} impl_counts {rep['impl_counts']} "
+    print(f"[compile] [main] {N}^3 unified/hopper, per region: first call "
+          f"(trace, compile, run) and graphs kept; 0 compiled after the "
+          f"warm-up step: " + compile_rows(app_regions))
+    print(f"[main] unified/hopper {N}^3 inner_max=25, compiled: FOM "
+          f"{fom:.4f} s/step (warm-up step {fom_warm:.4f} s) res_u "
+          f"{m['res_u']:.3e} iters_u {m['iters_u']} res_p {m['res_p']:.3e} "
+          f"iters_p {m['iters_p']} impl_counts {rep['impl_counts']} "
           f"staging_fraction {rep['staging_fraction']:.4f}")
     print(f"[main] launches over 3 steps: {json.dumps(counts)}")
     rows = sorted(app.ledger.regions.values(), key=lambda r: -r.compute_s)
@@ -574,13 +711,42 @@ def main(argv=None):
             raise AssertionError(f"kernel {k} never launched on the main path")
         records[k]["launches"] = counts[k]
 
-    # one step from the same state, tol=0 on both sides: hopper vs ref
+    # the same runs eagerly (disable_compile), in turns with compiled ones
+    turns = {"compiled": [(fom, region_ms(app))], "eager": []}
+    eager_app = None
+    for mode in ("eager", "compiled", "eager"):
+        if mode == "eager":
+            with disable_compile():
+                eager_app = eager_app or hopper_app(cfg)[0]
+                fom_t = main_run(eager_app)[1]
+            turns[mode].append((fom_t, region_ms(eager_app)))
+        else:
+            reset_plain()
+            fom_t = main_run(app)[1]
+            check_plain("[main] compiled turn")
+            turns[mode].append((fom_t, region_ms(app)))
+    ms_c, ms_e = turns["compiled"][0][1], turns["eager"][0][1]
+    print("[main] in turns (compiled, eager, compiled, eager; 1 warm-up + 2 "
+          "timed steps each): FOM compiled " + ", ".join(
+              f"{t[0]:.4f}" for t in turns["compiled"]) + " s/step, eager "
+          + ", ".join(f"{t[0]:.4f}" for t in turns["eager"]) + " s/step; "
+          "ms a call compiled/eager (first turn of each): " + "; ".join(
+              f"{k} {ms_c[k]:.4f}/{ms_e.get(k, float('nan')):.4f}"
+              for k in sorted(ms_c, key=lambda k: -ms_c[k])))
+    del eager_app
+
+    # one step from the same state, tol=0 on both sides: hopper vs ref,
+    # run eagerly as before regions were compiled (there hopper equals ref
+    # bit for bit; compiled, Inductor rounds the ref glue its own way, and
+    # 25 PBiCGStab iterations on the pinned pressure system turn that into
+    # O(max|x|) differences, see [fused])
     cfg0 = SimpleConfig(grid, nu=0.1, inner_max=25, tol_u=0.0, tol_p=0.0)
     outs = {}
-    for impl in ("hopper", "ref"):
-        a = SimpleFoam(cfg0, executor=Executor(
-            UnifiedPolicy(selector=StaticSelector(impl))))
-        outs[impl] = a.run_steps(st, 1)
+    with disable_compile():
+        for impl in ("hopper", "ref"):
+            a = SimpleFoam(cfg0, executor=Executor(
+                UnifiedPolicy(selector=StaticSelector(impl))))
+            outs[impl] = a.run_steps(st, 1)
     errs = {}
     for f in "uvwp":
         err, allowed = envelope_err(getattr(outs["ref"][0], f),
@@ -589,9 +755,11 @@ def main(argv=None):
         if not err <= allowed:
             raise AssertionError(f"hopper step leaves the ref envelope in {f}:"
                                  f" {err:.3e} > {allowed:.3e}")
-    print(f"[main] tol=0 step hopper vs ref: max_abs_err {errs}; step s: "
-          f"hopper {outs['hopper'][1]:.4f} ref {outs['ref'][1]:.4f} "
+    print(f"[main] tol=0 step hopper vs ref (eager): max_abs_err {errs}; "
+          f"step s: hopper {outs['hopper'][1]:.4f} ref {outs['ref'][1]:.4f} "
           f"(ref/hopper {outs['ref'][1] / outs['hopper'][1]:.2f})")
+
+    stamp("main")
 
     # -- 5. the four memory models (Fig 5) at 200^3 ---------------------
     # one warm-up and one timed step each, tol=0 so every policy runs the
@@ -602,12 +770,19 @@ def main(argv=None):
 
     sel = TargetSelector("hopper")
     st_host = SimpleState(*(getattr(st, f).cpu() for f in "uvwp"), st.step)
+    # the three card policies run one app's regions (and so its compiled
+    # executables), each through its own executor on the app's ledger
+    dev_app = SimpleFoam(steps_cfg(dev), executor=Executor(
+        UnifiedPolicy(selector=sel)))
     res = {}
     for pname in POLICIES:
         policy = make_policy(pname, selector=sel,
                              **({"device": dev} if pname == "discrete" else {}))
-        a = SimpleFoam(steps_cfg("cpu" if pname == "host" else dev),
-                       executor=Executor(policy))
+        if pname == "host":
+            a = SimpleFoam(steps_cfg("cpu"), executor=Executor(policy))
+        else:
+            a = dev_app
+            a.ex = Executor(policy, a.ledger)
         cut_s = None
         if pname == "adaptive":
             t0 = time.perf_counter()
@@ -617,16 +792,41 @@ def main(argv=None):
         a.run_steps(s0, 1)                                 # warm-up (pools)
         a.ledger.reset_timings()
         reset_launches()
-        PLAIN.clear()
+        reset_plain()
         s1, fom1, _ = a.run_steps(s0, 1)
         check_plain(f"[policies] {pname}")
-        res[pname] = dict(state=s1, fom=fom1, app=a, launches=launches(),
-                          rep=a.ex.report(), policy=policy, cut_s=cut_s)
+        res[pname] = dict(state=s1, fom=fom1, launches=launches(),
+                          rep=a.ex.report(), policy=policy, cut_s=cut_s,
+                          staged=sum(x.staging_bytes
+                                     for x in a.ledger.regions.values()))
+        if pname == "unified":
+            # the same step eagerly (disable_compile): within the step
+            # envelope, with the same kernel launches (3 PBiCGStab
+            # iterations: many more on the pinned pressure system would
+            # amplify Inductor's rounding of the ref glue, see [fused])
+            reset_launches()
+            with disable_compile():
+                s_e, fom_e, _ = a.run_steps(s0, 1)
+            cnt_e = launches()
+            errs = {}
+            for f in "uvwp":
+                err, allowed = envelope_err(getattr(s_e, f), getattr(s1, f))
+                errs[f] = err
+                if not err <= allowed:
+                    raise AssertionError(
+                        f"compiled step leaves the eager step's envelope in "
+                        f"{f}: {err:.3e} > {allowed:.3e}")
+            if cnt_e != res["unified"]["launches"]:
+                raise AssertionError(f"compiled step launched "
+                                     f"{res['unified']['launches']}, eager "
+                                     f"step {cnt_e}")
+            print(f"[policies] unified {N}^3 inner_max=3 compiled vs eager "
+                  f"step: max_abs_err {errs}; FOM compiled {fom1:.4f}, eager "
+                  f"{fom_e:.4f} s/step; launches equal: {json.dumps(cnt_e)}")
     fu = res["unified"]["fom"]
     for pname in POLICIES:
         r = res[pname]
-        rep_p, cnt = r["rep"], r["launches"]
-        staged = sum(x.staging_bytes for x in r["app"].ledger.regions.values())
+        rep_p, cnt, staged = r["rep"], r["launches"], r["staged"]
         errs = {}
         for f in "uvwp":
             err, allowed = envelope_err(getattr(res["unified"]["state"], f),
@@ -671,15 +871,17 @@ def main(argv=None):
     if not sf > 0.5:
         raise AssertionError(f"discrete staging_fraction {sf:.3f} <= 0.5")
     fd = res["discrete"]["fom"]
-    staged = sum(r.staging_bytes
-                 for r in res["discrete"]["app"].ledger.regions.values())
+    staged = res["discrete"]["staged"]
     print(f"[discrete] {N}^3 inner_max=3: FOM discrete {fd:.4f} s/step, "
           f"unified {fu:.4f} s/step, discrete/unified {fd / fu:.2f}; "
           f"staging_fraction {sf:.4f} ({rep_d['staging_s']:.4f} s, "
           f"{staged / 1e9:.3f} GB); host pool "
           f"{json.dumps(res['discrete']['policy'].stager.host_pool.stats.as_dict())}; "
           f"launches {json.dumps(res['discrete']['launches'])}")
-    del res, st_host, s0, s1, a, policy
+    dev_app.ex = Executor(UnifiedPolicy(selector=sel), dev_app.ledger)
+    del res, st_host, s0, s1, a, policy, s_e
+
+    stamp("policies")
 
     # -- 6. the fused solver on the step's pressure system -------------
     # timed at the step's 25 iterations; held against the region-wise
@@ -688,22 +890,21 @@ def main(argv=None):
     # into O(max|x|) ones within 25 iterations (tests/test_torch_solvers.py
     # holds the port's and the reference's solvers together at 3 and 10)
     taps = {}
-    app_u = SimpleFoam(cfg, executor=Executor(UnifiedPolicy(selector=sel)))
 
     def tap(r, *args, **kwargs):
-        out = app_u.ex.run(r, *args, **kwargs)
-        if r is app_u.assemble_pressure:
+        out = app.ex.run(r, *args, **kwargs)
+        if r is app.assemble_pressure:
             taps["pressure"] = out
         return out
 
-    app_u.time_step(st, executor=types.SimpleNamespace(run=tap))
+    app.time_step(st, executor=types.SimpleNamespace(run=tap))
     dp, offp, rp = taps.pop("pressure")
     A = DiaMatrix(dp, offp)
     red = grid.red_black_masks()[0]
     x0 = torch.zeros_like(rp)
     fused = {}
     reset_launches()
-    PLAIN.clear()
+    reset_plain()
     for precond in ("DILU", "Jacobi"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -715,7 +916,7 @@ def main(argv=None):
     if min(cnt[k] for k in CFD_KERNELS[:3]) <= 0:
         raise AssertionError(f"the fused solver did not launch K1-K3: {cnt}")
     ldg = Ledger("fused_check")
-    PLAIN.clear()
+    reset_plain()
     rd = solve(A, rp, x0, red, tol=cfg.tol_p, max_iter=3)
     check_plain("[fused]")
     rr = pbicgstab_regions(Executor(UnifiedPolicy(selector=sel), ldg),
@@ -739,13 +940,14 @@ def main(argv=None):
           f"at 3 iterations: iterations equal, max_abs_err {err:.3e} of "
           f"max|x| {rr.x.abs().max().item():.3e} (rtol {SOLVE_TOL['rtol']}, "
           f"atol {SOLVE_TOL['atol']})")
-    del taps, tap, dp, offp, rp, A, x0, fused, rd, rr, r, app_u
+    del taps, tap, dp, offp, rp, A, x0, fused, rd, rr, r
+
+    stamp("fused")
 
     # -- 7. capture and replay, sync and async (Fig 6b) -----------------
-    a = SimpleFoam(steps_cfg(dev), executor=Executor(
-        UnifiedPolicy(selector=sel)))
+    a = dev_app                       # its regions are compiled already
     reset_launches()
-    PLAIN.clear()
+    reset_plain()
     prog = a.capture_step(st)
     cnt = launches()
     check_plain("[async] capture")
@@ -775,7 +977,7 @@ def main(argv=None):
         a.replay_steps(prog, st_pin, 1, ex)              # warm-up (pools)
         ex.ledger.reset_timings()
         reset_launches()
-        PLAIN.clear()
+        reset_plain()
         s2, t2 = a.replay_steps(prog, st_pin, 2, ex)
         check_plain(f"[async] {mode} replay")
         cnt = launches()
@@ -799,9 +1001,11 @@ def main(argv=None):
                     raise AssertionError(f"async replay differs from sync "
                                          f"in {f}")
     print("[async] sync and async replays equal bit for bit")
-    del a, prog, eager, replayed, st_pin, out, ex, pol, s2, s_a, s_s
+    del a, dev_app, prog, eager, replayed, st_pin, out, ex, pol, s2, s_a, s_s
 
-    # -- 8. serve rwkv6-7b at full width -------------------------------
+    stamp("async")
+
+    # -- 8. serve rwkv6-7b at full width and depth ---------------------
     del app, outs, st
     SG, SGD = SERVE["gen"], SERVE["gen_discrete"]
     gs = torch.Generator(device=dev).manual_seed(args.seed)
@@ -815,18 +1019,20 @@ def main(argv=None):
     prompts = torch.randint(0, scfg.vocab, (SB, SP), generator=gs,
                             device=dev, dtype=torch.int32)
     batch = {"tokens": prompts}
-    print(f"[serve] rwkv6-7b: {scfg.n_layers} layers, d_model "
+    print(f"[serve] rwkv6-7b, {scfg.n_layers} layers, d_model "
           f"{scfg.d_model}, {scfg.n_heads}x{scfg.hd} heads, d_ff {scfg.d_ff}, "
           f"vocab {scfg.vocab}, {scfg.compute_dtype}; "
           f"{param_count(T.param_specs(scfg))} params, {w_bytes / 1e9:.2f} GB"
           f" on the card, random init in {t_init:.1f} s; "
           f"{before_serve / 1e9:.2f} GB allocated before the serve phase")
 
-    def serve_programs(policy, gen_n):
-        """Executor, regions and both captured programs, each replayed
-        once as a warm-up (capture runs the policy's variants)."""
+    def serve_programs(policy, gen_n, regions=None):
+        """Executor, regions (new ones unless given) and both captured
+        programs, each replayed once as a warm-up (capture runs the
+        policy's variants)."""
         ex = Executor(policy, Ledger("serve"))
-        regions = SV.make_serve_regions(scfg, params, ledger=ex.ledger)
+        if regions is None:
+            regions = SV.make_serve_regions(scfg, params, ledger=ex.ledger)
         pprog = SV.capture_prefill_program(regions, batch,
                                            T.init_cache(scfg, SB, dev),
                                            selector=policy.selector)
@@ -837,7 +1043,7 @@ def main(argv=None):
                                             dev), selector=policy.selector)
         dprog.replay(ex, tok, cache)
         ex.ledger.reset_timings()
-        return ex, pprog, dprog
+        return ex, regions, pprog, dprog
 
     def serve_run(ex, pprog, dprog):
         """One request batch: (tokens [B, gen] on the host, prefill s,
@@ -850,21 +1056,30 @@ def main(argv=None):
         return torch.stack([t.cpu() for t in toks], 1), t1 - t0, t2 - t1
 
     with_weights = torch.cuda.memory_allocated()
-    PLAIN.clear()
-    ex, pprog, dprog = serve_programs(
+    reset_plain()
+    n0 = len(REGIONS)
+    ex, regions, pprog, dprog = serve_programs(
         UnifiedPolicy(selector=StaticSelector("hopper")), SG)
+    serve_regions = REGIONS[n0:]
     held = torch.cuda.memory_allocated()
+    warm = compiles_of(REGIONS)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     seq, t_pre, t_dec = serve_run(ex, pprog, dprog)
     serve_counts = launches()
     check_plain("[serve] capture and replay")
+    if compiles_of(REGIONS) != warm:
+        raise AssertionError("[serve]: a region recompiled after its warm-up")
     peak = torch.cuda.max_memory_allocated()
     impl_prefill = ex.ledger.regions["PREFILL"].impl_counts
     rows = ex.ledger.regions.values()
-    print(f"[serve] unified/hopper {SB}x{SP} prompt, {SG} tokens: prefill "
-          f"{t_pre * 1e3:.1f} ms ({SB * SP / t_pre:.0f} prompt tok/s); decode "
-          f"{SG - 1} steps in {t_dec * 1e3:.1f} ms "
+    print(f"[compile] [serve] full width, per region: first call (trace, "
+          f"compile, run) and graphs kept: " + compile_rows(serve_regions)
+          + "; per layer kind (its first call inside the first step): "
+          + layer_rows())
+    print(f"[serve] unified/hopper {SB}x{SP} prompt, {SG} tokens, compiled: "
+          f"prefill {t_pre * 1e3:.1f} ms ({SB * SP / t_pre:.0f} prompt "
+          f"tok/s); decode {SG - 1} steps in {t_dec * 1e3:.1f} ms "
           f"({SB * (SG - 1) / t_dec:.1f} tok/s, "
           f"{t_dec / (SG - 1) * 1e3:.2f} ms/step); peak device memory "
           f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held before the run, "
@@ -881,46 +1096,136 @@ def main(argv=None):
         raise AssertionError(f"PREFILL ran {impl_prefill}, not hopper")
     records["rwkv6_scan"]["launches"] = serve_counts["rwkv6_scan"]
 
-    # the uncaptured path: same tokens; hopper prefill against ref prefill
+    # the same run eagerly (disable_compile), beside it
+    with disable_compile():
+        ex_e, _, pprog_e, dprog_e = serve_programs(
+            UnifiedPolicy(selector=StaticSelector("hopper")), SG)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        seq_e, te_pre, te_dec = serve_run(ex_e, pprog_e, dprog_e)
+        peak_e = torch.cuda.max_memory_allocated()
+    if launches()["rwkv6_scan"] != scfg.n_layers:
+        raise AssertionError("the eager prefill did not launch K5 once per "
+                             "layer")
+    print(f"[serve] unified/hopper {SB}x{SP} prompt, {SG} tokens, eager: "
+          f"prefill {te_pre * 1e3:.1f} ms; decode {SG - 1} steps in "
+          f"{te_dec * 1e3:.1f} ms ({SB * (SG - 1) / te_dec:.1f} tok/s, "
+          f"{te_dec / (SG - 1) * 1e3:.2f} ms/step); peak device memory "
+          f"{peak_e / 1e9:.2f} GB; K5 launches equal to the compiled run's; "
+          f"tokens agree with the compiled run's in "
+          f"{(seq_e == seq).float().mean().item():.3f} of places, the first "
+          f"decoded token in {(seq_e[:, 1] == seq[:, 1]).float().mean():.2f}"
+          f" of rows; first differing step of each row "
+          f"{first_diff(seq_e, seq)} (a greedy row follows its own tokens "
+          f"after one flip)")
+    del ex_e, pprog_e, dprog_e, seq_e
+
+    # the uncaptured path, compiled: the replay's tokens; peak memory of
+    # its decode with the cache donated and without
     prefill_h, decode, make_cache = SV.build_server(scfg, SB, dev,
                                                     rwkv_impl="hopper")
-    prefill_r, _, _ = SV.build_server(scfg, SB, dev)
-    pre_s = {}
-    for impl, step in (("hopper", prefill_h), ("ref", prefill_r)):
-        t0 = time.perf_counter()
-        pre_s[impl] = (*step(params, batch, make_cache()),)
+    # the same decode step without donation: the DECODE_STEP region's
+    # compiled executable (the function build_server's decode compiles),
+    # called outside any program
+    step_kept = regions.decode_step.executable("default")
+
+    def decode_kept(params_, tok_, cache_, pos_):
+        return step_kept(tok_, cache_, pos_)
+
+    reset_plain()
+    dec_peak = {}
+    for how, dec in (("donated", decode), ("kept", decode_kept),
+                     ("donated", decode), ("kept", decode_kept)):
+        lh, ch = prefill_h(params, batch, make_cache())
         torch.cuda.synchronize()
-        pre_s[impl] += (time.perf_counter() - t0,)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        toks_j, cache_end = SV.decode_stream(dec, params, SV.greedy(lh), ch,
+                                             SP, SG)
+        dec_peak[how] = (torch.cuda.max_memory_allocated() - base,
+                         torch.cuda.max_memory_allocated())
+        if not torch.equal(seq, torch.stack([t.cpu() for t in toks_j], 1)):
+            raise AssertionError(f"replayed tokens differ from the uncaptured "
+                                 f"path's ({how} cache)")
+        del lh, ch
+    check_plain("[serve] uncaptured")
+    print(f"[serve] uncaptured path, compiled: tokens equal to the replay's; "
+          f"decode of {SG - 1} steps, peak above the prefilled state: "
+          f"donated cache {dec_peak['donated'][0] / 1e9:.3f} GB (peak "
+          f"{dec_peak['donated'][1] / 1e9:.2f} GB), cache kept "
+          f"{dec_peak['kept'][0] / 1e9:.3f} GB (peak "
+          f"{dec_peak['kept'][1] / 1e9:.2f} GB); [compile] prefill "
+          f"{prefill_h.stats.first_call_s:.2f} s, decode donated "
+          f"{decode.stats.first_call_s:.2f} s")
+    if dec_peak["donated"][0] > dec_peak["kept"][0]:
+        raise AssertionError("the donated decode raised peak memory")
+    # one more step's logits from the kept decode's last state
+    ld, _ = T.decode_step(params, toks_j[-1], cache_end, SP + SG - 1, scfg,
+                          T.Ctx())
+    del decode_kept, step_kept, toks_j
+
+    # the compiled prefill and one compiled decode step (logits) against the
+    # same functions run eagerly below, on the same inputs
+    lc, cc = prefill_h(params, batch, make_cache())
+    decode_logits = compile_region_fn(train_step.make_decode_step(scfg),
+                                      "decode_logits")
+    tok_c = SV.greedy(lc)
+    ldc, _ = decode_logits(params, tok_c, cc, SV.position(SP))
+
+    # hopper prefill against ref prefill, eagerly as before compiling
+    with disable_compile():
+        prefill_he, _, make_cache_e = SV.build_server(scfg, SB, dev,
+                                                      rwkv_impl="hopper")
+        prefill_r, _, _ = SV.build_server(scfg, SB, dev)
+        pre_s = {}
+        for impl, step in (("hopper", prefill_he), ("ref", prefill_r)):
+            t0 = time.perf_counter()
+            pre_s[impl] = (*step(params, batch, make_cache_e()),)
+            torch.cuda.synchronize()
+            pre_s[impl] += (time.perf_counter() - t0,)
+        lde, _ = train_step.make_decode_step(scfg)(params, tok_c, cc,
+                                                   SV.position(SP))
     (lh, ch, th), (lr, cr, tr) = pre_s["hopper"], pre_s["ref"]
-    toks_j, cache_end = SV.decode_stream(decode, params, SV.greedy(lh), ch,
-                                         SP, SG)
-    if not torch.equal(seq, torch.stack([t.cpu() for t in toks_j], 1)):
-        raise AssertionError("replayed tokens differ from the uncaptured "
-                             "path's")
-    ld, _ = decode(params, toks_j[-1], cache_end, SP + SG - 1)
+    s_ce, l_ce = rel_errs(lc, cc, lh, ch)
+    d_ce = ((ldc.float() - lde.float()).abs().max()
+            / lde.float().abs().max()).item()
+    print(f"[serve] compiled vs eager, same inputs: hopper prefill max "
+          f"|dS| / max|S| over layers {max(s_ce):.3e} (layer 0 "
+          f"{s_ce[0]:.3e}), max |dlogit| / max|logit| {l_ce:.3e}, first-token "
+          f"agreement {(SV.greedy(lc) == SV.greedy(lh)).float().mean():.2f}; "
+          f"one decode step from the compiled prefill's state: max |dlogit| "
+          f"/ max|logit| {d_ce:.3e}, token agreement "
+          f"{(SV.greedy(ldc) == SV.greedy(lde)).float().mean():.2f} "
+          f"(limit {PREFILL_TOL})")
+    if not (max(s_ce) <= PREFILL_TOL and l_ce <= PREFILL_TOL
+            and d_ce <= PREFILL_TOL):
+        raise AssertionError("the compiled serve steps leave the eager "
+                             "steps' envelope")
     for what, lg in (("hopper prefill", lh), ("ref prefill", lr),
-                     ("decode", ld)):
+                     ("decode", ld), ("compiled decode", ldc)):
         if not torch.isfinite(lg).all():
             raise AssertionError(f"{what} logits are not finite")
     s_rel, l_rel = rel_errs(lh, ch, lr, cr)
     agree = (SV.greedy(lh) == SV.greedy(lr)).float().mean().item()
-    print(f"[serve] uncaptured path: tokens equal to the replay's; hopper "
-          f"prefill {th * 1e3:.1f} ms vs ref (rwkv_chunk) {tr * 1e3:.1f} ms; "
-          f"max |dS| / max|S| over layers {max(s_rel):.3e} (layer 0, whose "
-          f"scan inputs are equal on both sides: {s_rel[0]:.3e}, limit "
-          f"{SCAN_ON_MODEL_TOL}), max |dlogit| / max|logit| {l_rel:.3e} "
-          f"(limit {PREFILL_TOL}); first-token agreement {agree:.2f}; "
-          f"logits finite")
+    print(f"[serve] hopper prefill {th * 1e3:.1f} ms vs ref (rwkv_chunk) "
+          f"{tr * 1e3:.1f} ms, eager; max |dS| / max|S| over layers "
+          f"{max(s_rel):.3e} (layer 0, whose scan inputs are equal on both "
+          f"sides: {s_rel[0]:.3e}, limit {SCAN_ON_MODEL_TOL}), max |dlogit| /"
+          f" max|logit| {l_rel:.3e} (limit {PREFILL_TOL}); first-token "
+          f"agreement {agree:.2f}; logits finite")
     if not s_rel[0] <= SCAN_ON_MODEL_TOL:
         raise AssertionError("K5 leaves rwkv_chunk on layer 0's inputs")
     if not (max(s_rel) <= PREFILL_TOL and l_rel <= PREFILL_TOL):
         raise AssertionError("hopper prefill leaves the ref envelope")
-    del lh, ch, lr, cr, pre_s, toks_j, cache_end, ld
+    del lh, ch, lr, cr, pre_s, cache_end, ld, prefill_he, prefill_r, lc, \
+        cc, ldc, lde, decode_logits
 
-    # the discrete policy: every offloaded region stages the state
-    PLAIN.clear()
-    exd, pprog_d, dprog_d = serve_programs(
-        DiscretePolicy(selector=StaticSelector("hopper")), SGD)
+    # the discrete policy: every offloaded region stages the state; the
+    # unified run's regions (and compiled executables) serve it
+    reset_plain()
+    exd, _, pprog_d, dprog_d = serve_programs(
+        DiscretePolicy(selector=StaticSelector("hopper")), SGD,
+        regions=regions)
     seq_d, td_pre, td_dec = serve_run(exd, pprog_d, dprog_d)
     check_plain("[serve] discrete")
     if not torch.equal(seq_d, seq[:, :SGD]):
@@ -933,22 +1238,116 @@ def main(argv=None):
           f"({SB * (SGD - 1) / td_dec:.1f} tok/s); staging_fraction "
           f"{rep_sd['staging_fraction']:.4f} ({rep_sd['staging_s']:.4f} s, "
           f"{staged_sd / 1e9:.3f} GB)")
-    del exd, pprog_d, dprog_d, ex, pprog, dprog
+    del exd, pprog_d, dprog_d, dprog
+
+    stamp("serve")
+
+    # -- 9. replay_batch: decode over request groups, and a CFD solve ---
+    # the serve phase's regions and compiled prefill; under vmap each layer
+    # op runs once per group, at the solo replay's shapes
+    reset_plain()
+    lg0, cache0 = prefill_h(params, batch, make_cache())
+    dprog_b = SV.capture_decode_program(regions, SP, BATCH_GEN,
+                                        SV.greedy(lg0), cache0,
+                                        selector=ex.policy.selector)
+    del lg0, cache0
+    groups = types.SimpleNamespace(seed=args.seed, batch=SB, prompt_len=SP,
+                                   gen=BATCH_GEN)
+    SV.replay_request_groups(scfg, ex, dprog_b, prefill_h, make_cache,
+                             params, groups, 2, dev)            # compiles
+    seqs_b, solo_b, t_b = SV.replay_request_groups(
+        scfg, ex, dprog_b, prefill_h, make_cache, params, groups, 2, dev)
+    check_plain("[batch] decode")
+    batched_fn = next(iter(dprog_b._batched.values()))
+    n_tok = 2 * SB * BATCH_GEN
+    print(f"[batch] decode program of rwkv6-7b ({scfg.n_layers} layers, "
+          f"{BATCH_GEN} tokens, {len(dprog_b)} ops) over 2 request groups "
+          f"of {SB}: {n_tok} tokens in "
+          f"{t_b * 1e3:.1f} ms ({n_tok / t_b:.0f} tok/s) after a first call "
+          f"of {batched_fn.stats.first_call_s:.1f} s (trace, compile, run; "
+          f"{batched_fn.stats.compiles} compiled); against each group's solo "
+          f"replay: tokens agree in {(seqs_b == solo_b).float().mean():.3f}"
+          f" of places, the first decoded token in "
+          f"{(seqs_b[..., 1] == solo_b[..., 1]).float().mean():.2f} of rows "
+          f"(must be 1); first differing step of each row "
+          f"{first_diff(seqs_b.flatten(0, 1), solo_b.flatten(0, 1))}")
+    if seqs_b.shape != (2, SB, BATCH_GEN) or \
+            not ((seqs_b >= 0) & (seqs_b < scfg.vocab)).all():
+        raise AssertionError(f"replay_batch tokens out of range: {seqs_b}")
+    if not torch.equal(seqs_b[..., :2], solo_b[..., :2]):
+        raise AssertionError("replay_batch's first decoded tokens differ "
+                             "from the solo replays'")
+    del ex, regions, pprog, prefill_h, decode, make_cache, seqs_b, solo_b, \
+        dprog_b
+
+    # a captured PBiCGStab solve (K1-K4 through the hopper variants) on
+    # the Laplacian at 200^3, replayed over 2 right-hand sides
+    A_b, _ = fvm.laplacian(Grid((N, N, N)), 1.0)
+    A_b = DiaMatrix(A_b.diag + 0.5, A_b.off)
+    P_b = rb_dilu_factor(A_b, grid.red_black_masks()[0])
+    solver = make_solver_regions(Ledger("batch"))
+
+    def solve_fn(run, b, x0):
+        return pbicgstab_regions(types.SimpleNamespace(run=run), solver, A_b,
+                                 b, x0, P_b, tol=0.0, max_iter=3).x
+
+    rhs = torch.rand((2, N, N, N), generator=g, device=dev)
+    x0s = torch.zeros_like(rhs)
+    prog_s = capture(solve_fn, rhs[0], x0s[0], name="solve", selector=sel)
+    ex_s = Executor(UnifiedPolicy(selector=sel))
+    solo_s = torch.stack([prog_s.replay(ex_s, rhs[i], x0s[i])
+                          for i in range(2)])
+    prog_s.replay_batch(rhs, x0s, executor=ex_s, selector=sel)   # compiles
+    reset_plain()
+    reset_launches()
+    t0 = time.perf_counter()
+    got_s = prog_s.replay_batch(rhs, x0s, executor=ex_s, selector=sel)
+    t_s = time.perf_counter() - t0
+    cnt_b = launches()
+    check_plain("[batch] solve")
+    err, allowed = envelope_err(solo_s, got_s)
+    solve_fn_c = next(iter(prog_s._batched.values()))
+    print(f"[batch] PBiCGStab solve ({len(prog_s)} ops, 3 iterations) on the "
+          f"{N}^3 Laplacian over 2 right-hand sides: "
+          f"{t_s * 1e3:.2f} ms (first call {solve_fn_c.stats.first_call_s:.1f}"
+          f" s); vs "
+          f"solo replays max_abs_err {err:.3e} (allowed {allowed:.3e}); "
+          f"launches {json.dumps(cnt_b)}")
+    if not err <= allowed:
+        raise AssertionError("replay_batch of the solve leaves the envelope")
+    if min(cnt_b[k] for k in CFD_KERNELS) <= 0:
+        raise AssertionError(f"replay_batch did not launch K1-K4: {cnt_b}")
+    del A_b, P_b, solver, rhs, x0s, prog_s, ex_s, solo_s, got_s
+
+    # every compiled executable of the run: at most two recompiles
+    worst = max([(st.recompiles, r.name) for r in REGIONS
+                 for st in r.compile_stats.values()]
+                + [(op.stats.recompiles, op.label)
+                   for op in T.LAYER_OPS.values()])
+    print(f"[compile] {sum(len(r.compile_stats) for r in REGIONS)} compiled "
+          f"region executables and "
+          f"{sum(1 for op in T.LAYER_OPS.values() if op.stats.calls)} "
+          f"compiled layers over the run, at most {worst[0]} recompiles "
+          f"({worst[1]})")
+    if worst[0] > 2:
+        raise AssertionError(f"region {worst[1]} recompiled {worst[0]} times")
 
     # the same weights widened to f32, with f32 activations: hopper vs ref
-    # prefill, so that only f32 rounding separates them
+    # prefill, so that only f32 rounding separates them (eagerly, as before
+    # compiling: Inductor's fusions would add their own rounding)
     cfg32 = dataclasses.replace(scfg, param_dtype="float32",
                                 compute_dtype="float32")
     params32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
                         params)
     del params
     pre32 = {}
-    for impl in ("hopper", None):
-        step, _, mk = SV.build_server(cfg32, SB, dev, rwkv_impl=impl)
-        t0 = time.perf_counter()
-        pre32[impl] = (*step(params32, batch, mk()),)
-        torch.cuda.synchronize()
-        pre32[impl] += (time.perf_counter() - t0,)
+    with disable_compile():
+        for impl in ("hopper", None):
+            step, _, mk = SV.build_server(cfg32, SB, dev, rwkv_impl=impl)
+            t0 = time.perf_counter()
+            pre32[impl] = (*step(params32, batch, mk()),)
+            torch.cuda.synchronize()
+            pre32[impl] += (time.perf_counter() - t0,)
     (lh, ch, th), (lr, cr, tr) = pre32["hopper"], pre32[None]
     s_rel, l_rel = rel_errs(lh, ch, lr, cr)
     print(f"[serve] f32 weights and activations: hopper prefill "
@@ -959,7 +1358,9 @@ def main(argv=None):
         raise AssertionError("f32 hopper prefill leaves the ref envelope")
     del params32, pre32, lh, ch, lr, cr
 
-    # -- 9. the kernels of both paths, and the port's status ------------
+    stamp("batch")
+
+    # -- 10. the kernels of both paths, and the port's status ------------
     print(json.dumps({"kernels": [records[k]
                                   for k in on_path + ("rwkv6_scan",)]}))
     status = [

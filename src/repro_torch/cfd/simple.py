@@ -68,7 +68,9 @@ class SimpleFoam:
     Its tensors live on ``cfg.grid.device`` (CUDA unless the grid says
     otherwise).  A region that builds grid tensors builds them on its
     operands' device (:meth:`_on`), so it also runs when a policy routes
-    it to the host and its operands cross to the CPU."""
+    it to the host and its operands cross to the CPU.  The grid and its
+    red mask are built here for the CPU and the grid's device, so a
+    compiled region body only looks them up."""
 
     def __init__(self, cfg: SimpleConfig, executor: Optional[Executor] = None):
         self.cfg = cfg
@@ -80,6 +82,9 @@ class SimpleFoam:
         self.red = cfg.grid.red_black_masks()[0]
         #: device type -> (grid, red mask) on that device
         self._grids = {cfg.grid.device.type: (cfg.grid, self.red)}
+        if "cpu" not in self._grids:
+            g = dataclasses.replace(cfg.grid, device="cpu")
+            self._grids["cpu"] = (g, g.red_black_masks()[0])
         asm = dict(ledger=self.ledger)
 
         @region("assemble(momentum)", stencil=STENCIL_OFFSETS,
@@ -151,7 +156,8 @@ class SimpleFoam:
         self.relax_p = relax_p
 
     def _on(self, x: torch.Tensor) -> tuple:
-        """(grid, red mask) on ``x``'s device."""
+        """(grid, red mask) on ``x``'s device (built on first use for a
+        device other than the CPU and the grid's)."""
         got = self._grids.get(x.device.type)
         if got is None:
             g = dataclasses.replace(self.cfg.grid, device=x.device)

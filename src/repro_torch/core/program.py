@@ -3,13 +3,14 @@ executor (counterpart of ``repro.core.program``).
 
 * :func:`capture` runs a step function once under a recording ``run``
   callable and records every region call plus the dataflow between calls
-  (which output leaf feeds which later argument leaf).  Capture executes
-  each call eagerly, so host-side control flow proceeds normally and is
-  *frozen* into the trace, CUDA-graph style: loop counts and host scalars
-  become program constants.  It runs the variant that the caller's
-  ``selector`` picks (``ref`` when none is given), so on the card a
-  captured step runs the kernels that its replays will run and no plain
-  version.
+  (which output leaf feeds which later argument leaf).  Capture runs each
+  call as it comes (through the region's compiled ``default``
+  executable, as the reference's runs ``r.jitted``), so host-side control
+  flow proceeds normally and is *frozen* into the trace, CUDA-graph style:
+  loop counts and host scalars become program constants.  It runs the
+  variant that the caller's ``selector`` picks (``ref`` when none is
+  given), so on the card a captured step runs the kernels that its
+  replays will run and no plain version.
 * :class:`RegionProgram` is the trace: ops, input slots, constants and
   the output spec.  ``replay(executor, *inputs)`` re-issues the calls
   through an :class:`~repro_torch.core.regions.Executor` under any policy,
@@ -19,6 +20,10 @@ executor (counterpart of ``repro.core.program``).
   re-resolves each op's variant through the executing policy's selector:
   one captured step replays under ``StaticSelector("ref")`` or
   ``StaticSelector("hopper")`` without re-capturing.
+* :meth:`RegionProgram.as_fn` composes the ops' variants along the
+  recorded dataflow into one function of the inputs, and
+  :meth:`RegionProgram.replay_batch` runs N independent instances through
+  ``torch.compile(torch.func.vmap(as_fn))``, booked as one ledger row.
 * :class:`AsyncExecutor` replays a program with one-op lookahead staging:
   while op *k* computes on the compute stream, op *k+1*'s operands that are
   already available are copied on a side CUDA stream into the next bank of
@@ -34,7 +39,7 @@ everything else (Python scalars, tensors computed outside any region) is
 captured as a constant.
 
 Trees are flattened with ``torch.utils._pytree``.  Still to come (ROADMAP
-A.3): ``replay_batch``, ``as_fn`` and ``verify``.
+A.3): ``verify``.
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.core.ledger import Ledger
 from repro_torch.core.pool import BufferRotation
-from repro_torch.core.regions import Executor, Region
+from repro_torch.core.regions import (Executor, Region, compile_disabled,
+                                      compile_region_fn, synchronize)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +127,10 @@ class RegionProgram:
         self.out_leaves: List[Any] = []
         #: op index -> (op, leaf) outputs whose last reader is that op
         self._dead_after: Dict[int, List[Tuple[int, int]]] = {}
+        #: (in_dims, variant per op) -> compiled vmapped composite
+        self._batched: Dict[Any, Callable] = {}
+        #: ledger -> its ``<name>[batch]`` row, weak at the ledger
+        self._batch_rows = weakref.WeakKeyDictionary()
 
     def __len__(self) -> int:
         return len(self.ops)
@@ -171,18 +181,100 @@ class RegionProgram:
         return pytree.tree_unflatten([resolve(d) for d in self.out_leaves],
                                      self.out_tree)
 
+    # -- batched replay --------------------------------------------------
+    def _op_impls(self, selector=None) -> Tuple[str, ...]:
+        """One variant name per op under ``selector`` (None: ``ref``
+        everywhere).  The composite has no routing step, so selection sees
+        the ``default`` target and the captured example size, the
+        prediction the async lookahead uses too."""
+        if selector is None:
+            return tuple("ref" for _ in self.ops)
+        return tuple(
+            op.region.resolve(selector.select(op.region, "default", (), {},
+                                              size=op.example_size))
+            for op in self.ops)
+
+    def as_fn(self, selector=None) -> Callable:
+        """The program as one function of its inputs: the ops' variants
+        (picked by ``selector``) composed along the recorded dataflow,
+        captured constants closed over.  No executor and no staging.  Each
+        call holds its environment for that call only: every output leaf
+        lives until the call returns (the sequential replay's liveness drop
+        is not needed, since a compiled composite frees by its own
+        analysis)."""
+        impls = self._op_impls(selector)
+        fns = [op.region.impl_fn(impl) for op, impl in zip(self.ops, impls)]
+
+        def fn(*inputs):
+            in_leaves = self._input_leaves(inputs)
+            env: List[List[Any]] = []
+            resolve = _resolver(env, in_leaves)
+            for op, f in zip(self.ops, fns):
+                args, kwargs = pytree.tree_unflatten(
+                    [resolve(d) for d in op.leaves], op.in_tree)
+                env.append(pytree.tree_leaves(f(*args, **kwargs)))
+            return pytree.tree_unflatten(
+                [resolve(d) for d in self.out_leaves], self.out_tree)
+        return fn
+
+    def replay_batch(self, *stacked_inputs, executor=None, in_axes=0,
+                     selector=None):
+        """Replay N independent instances through one vmapped composite:
+        ``torch.compile(torch.func.vmap(as_fn(selector), in_dims=in_axes))``
+        (eager inside :func:`~repro_torch.core.regions.disable_compile`).
+
+        ``stacked_inputs`` mirror the captured input structure with a
+        batch axis on every tensor leaf (``in_axes`` as ``vmap``'s
+        ``in_dims``); captured constants broadcast.  One compiled
+        composite per (``in_axes``, variant mix).  The call is timed to a
+        synchronise and booked as one ``<name>[batch]`` row on the
+        executor's ledger (when one is given)."""
+        impls = self._op_impls(selector)
+        batched_fn = torch.func.vmap(self.as_fn(selector), in_dims=in_axes)
+        if compile_disabled():
+            batched = batched_fn
+        else:
+            key = (repr(in_axes), impls)
+            batched = self._batched.get(key)
+            if batched is None:
+                batched = self._batched[key] = compile_region_fn(
+                    batched_fn, f"{self.name}_batch")
+        t0 = time.perf_counter()
+        out = batched(*stacked_inputs)
+        synchronize()
+        dt = time.perf_counter() - t0
+        if executor is not None:
+            sizes = [a.numel() for a in pytree.tree_leaves(stacked_inputs)
+                     if isinstance(a, torch.Tensor)]
+            executor.ledger.record(
+                self._batch_row(executor.ledger), device=True, offloaded=True,
+                compute_s=dt, elems=max(sizes, default=0))
+        return out
+
+    def _batch_row(self, ledger: Ledger) -> str:
+        """This program's ``<name>[batch]`` row on ``ledger``, weak-keyed
+        by the ledger object, so a recycled address never resurrects a
+        stale row name."""
+        name = self._batch_rows.get(ledger)
+        if name is None:
+            name = self._batch_rows[ledger] = ledger.register(
+                f"{self.name}[batch]", True)
+        return name
+
 
 def capture(fn: Callable, *example_inputs, name: str = "program",
             selector: Optional[Any] = None) -> RegionProgram:
     """Record ``fn(run, *example_inputs)`` into a :class:`RegionProgram`.
 
     ``fn`` receives a recording ``run(region, *args, **kwargs)`` callable in
-    place of ``Executor.run``; every call runs eagerly (so Python control
-    flow sees concrete values) and is recorded with its dataflow.  Each
-    call runs the variant ``selector`` picks for the ``default`` target at
-    the call's size (the executing policy's selector, so that on the card
-    capture launches the kernels its replays launch); without a selector,
-    the base function ``ref``."""
+    place of ``Executor.run``; every call runs when it is made (so Python
+    control flow sees concrete values), through the region's ``default``
+    executable (compiled and donating, as the reference's capture runs
+    ``r.jitted``; eager inside ``disable_compile``), and is recorded with
+    its dataflow.  Each call runs the variant ``selector`` picks for the
+    ``default`` target at the call's size (the executing policy's
+    selector, so that on the card capture launches the kernels its replays
+    launch); without a selector, the base function ``ref``."""
     prog = RegionProgram(name)
     in_leaves, prog.in_tree = pytree.tree_flatten(example_inputs)
     prog.n_inputs = len(in_leaves)
@@ -210,7 +302,7 @@ def capture(fn: Callable, *example_inputs, name: str = "program",
         op = OpCall(r, tree, [describe(x) for x in leaves], keys, size)
         impl = "ref" if selector is None else r.resolve(
             selector.select(r, "default", args, kwargs, size=size))
-        out = r.impl_fn(impl)(*args, **kwargs)
+        out = r.executable("default", impl)(*args, **kwargs)
         k = len(prog.ops)
         out_leaves = pytree.tree_leaves(out)
         for j, ol in enumerate(out_leaves):
@@ -417,7 +509,8 @@ class AsyncExecutor:
                 [staged_map.get(i, x) for i, x in enumerate(raw)], op.in_tree)
             t0 = time.perf_counter()
             c0 = streams.stamp()
-            out = r.executable(tgt, impl)(*args, **kwargs)
+            # a staging policy donates nothing: staged pages are the pool's
+            out = r.executable(tgt, impl, donate=False)(*args, **kwargs)
             c1 = streams.stamp()
             # queue the NEXT op's copies before waiting on this op's
             # compute: this ordering is the whole overlap

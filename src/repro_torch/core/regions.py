@@ -8,9 +8,12 @@ abstraction, in PyTorch's eager idiom:
 * :class:`Region` — one directive-sized unit of work: the function, its
   named implementation variants (``ref`` is always the function itself;
   hand-written kernels register as ``hopper``), a problem-size measure, the
-  offload hint and the stencil metadata of sharded replay.
-  :meth:`Region.executable` is the callable of one (routing target,
-  variant) pair.
+  offload hint, the donated arguments and the stencil metadata of sharded
+  replay.  :meth:`Region.executable` is the compiled callable of one
+  (routing target, variant, donation) triple: ``torch.compile`` with
+  ``fullgraph=True``, the counterpart of the reference's ``jax.jit`` with
+  ``donate_argnums``.  Inside :func:`disable_compile` (the counterpart of
+  ``jax.disable_jit()``) it is the variant itself, run eagerly.
 * An execution policy of four axes: placement (:class:`Placer`), routing
   (:class:`StaticRouter`, or :class:`SizeRouter` — the paper's
   ``if(target: n > TARGET_CUT_OFF)``), staging (:class:`NullStager` — the
@@ -34,18 +37,27 @@ one place where the port's accounting departs from the reference's, whose
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import inspect
+import itertools
+import os
+import re
+import shutil
+import subprocess
 import time
+import types
 import weakref
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import umem
 from repro_torch.core.ledger import GLOBAL_LEDGER, Ledger
 from repro_torch.core.pool import DeviceBufferPool, HostStagingPool
 from repro_torch.core.umem import UnifiedArena
-from repro_torch.kernels import KERNEL_VARIANT
+from repro_torch.kernels import KERNEL_VARIANT, build
 
 
 DEFAULT_CUTOFF = 16384          # the paper's empirical TARGET_CUT_OFF
@@ -86,6 +98,15 @@ def default_size(args, kwargs) -> int:
                 if isinstance(x, torch.Tensor)), default=0)
 
 
+def _param_indices(fn: Callable) -> Dict[str, int]:
+    """Positional index of each named parameter."""
+    try:
+        return {name: i for i, name
+                in enumerate(inspect.signature(fn).parameters)}
+    except (ValueError, TypeError):         # builtins, odd callables
+        return {}
+
+
 def synchronize() -> None:
     """Wait for queued device work, so a host clock around it measures the
     work and not its enqueue (``block_until_ready`` in the JAX package)."""
@@ -94,28 +115,292 @@ def synchronize() -> None:
 
 
 # ---------------------------------------------------------------------------
+# Compiled executables
+# ---------------------------------------------------------------------------
+
+#: Inductor's on-disk cache, under the checkout's ``build/`` (unless the
+#: caller's environment names another); set at import, before anything
+#: asks Inductor for its cache directory
+COMPILE_CACHE = build.BUILD_DIR.parent / "inductor"
+os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(COMPILE_CACHE))
+
+_eager_depth = 0
+_configured = False
+_executable_ids = itertools.count()
+
+
+@contextlib.contextmanager
+def disable_compile():
+    """Run regions eagerly inside the block: :meth:`Region.executable`
+    returns the variant itself, uncompiled, as ``jax.disable_jit()`` makes
+    the reference's jitted executables run op by op."""
+    global _eager_depth
+    _eager_depth += 1
+    try:
+        yield
+    finally:
+        _eager_depth -= 1
+
+
+def compile_disabled() -> bool:
+    """True inside :func:`disable_compile`."""
+    return _eager_depth > 0
+
+
+def _builds_openmp(cxx: str) -> bool:
+    """Whether ``cxx`` compiles and links an OpenMP program."""
+    try:
+        return subprocess.run(
+            [cxx, "-fopenmp", "-x", "c++", "-", "-o", os.devnull],
+            input="int main() { return 0; }", capture_output=True,
+            text=True, timeout=120).returncode == 0
+    except OSError:
+        return False
+
+
+def _openmp_cxx() -> str:
+    """The C++ compiler for Inductor's CPU code, which it always builds
+    with ``-fopenmp``: its configured one (``$CXX``, else ``g++``) when
+    that builds OpenMP code, else the first ``g++`` on ``PATH`` that does
+    (a toolchain set up for ``nvcc`` may ship without ``libgomp``).
+    Raises if none does."""
+    from torch._inductor import config as inductor_config
+    tried = [inductor_config.cpp.cxx[1]]
+    tried += [p for p in (shutil.which("g++", path=d) for d in
+                          os.environ.get("PATH", "").split(os.pathsep))
+              if p and p not in tried]
+    for cxx in tried:
+        if cxx and _builds_openmp(cxx):
+            return cxx
+    raise RuntimeError(f"no C++ compiler builds OpenMP code (tried {tried}); "
+                       "Inductor needs one for the regions' CPU code")
+
+
+def _configure_compile() -> None:
+    """Once, before the first compile: give Inductor a C++ compiler that
+    builds OpenMP code (:func:`_openmp_cxx`), and make a region that hits
+    Dynamo's recompile limit raise instead of running on eagerly."""
+    global _configured
+    if _configured:
+        return
+    from torch._inductor import config as inductor_config
+    inductor_config.cpp.cxx = (None, _openmp_cxx())
+    if hasattr(torch._dynamo.config, "fail_on_recompile_limit_hit"):
+        torch._dynamo.config.fail_on_recompile_limit_hit = True
+    _configured = True
+
+
+@dataclasses.dataclass
+class CompileStats:
+    """One compiled executable's compile record."""
+    first_call_s: float = 0.0  # wall seconds of the first call: trace,
+    calls: int = 0             # compile and run
+    code: Optional[types.CodeType] = dataclasses.field(default=None,
+                                                       repr=False)
+
+    @property
+    def compiles(self) -> int:
+        """Graphs Dynamo keeps for the executable (its code object's cache
+        entries): the first, then one per recompile.  A trace that Dynamo
+        restarts before keeping it is not a compile."""
+        if self.code is None:
+            return 0
+        from torch._dynamo.eval_frame import _debug_get_cache_entry_list
+        return len(_debug_get_cache_entry_list(self.code))
+
+    @property
+    def recompiles(self) -> int:
+        return max(0, self.compiles - 1)
+
+
+def _alias_results(out, args, donate: Tuple[int, ...]):
+    """XLA's buffer rules on a compiled region's results.  A result leaf
+    that is a donated argument leaf stays that leaf; any other result leaf
+    whose shape, dtype and device match a donated leaf not yet taken (in
+    leaf order) is written into that leaf's storage (``copy_``, which
+    Inductor folds into the producer's store), so the result lives where
+    the argument lived; a result leaf that is an argument leaf not donated
+    is a fresh copy.  A result that is a *view* of a donated argument is
+    not supported (donate such an argument only if no result views it)."""
+    leaves, spec = pytree.tree_flatten(out)
+    donated = [x for i in donate if i < len(args)
+               for x in pytree.tree_leaves(args[i])
+               if isinstance(x, torch.Tensor)]
+    inputs = [x for x in pytree.tree_leaves(args)
+              if isinstance(x, torch.Tensor)]
+    taken = set()
+    for o in leaves:                        # identity first
+        for k, d in enumerate(donated):
+            if k not in taken and o is d:
+                taken.add(k)
+                break
+    for j, o in enumerate(leaves):
+        if not isinstance(o, torch.Tensor) or \
+                any(o is d for d in donated):
+            continue
+        for k, d in enumerate(donated):
+            if k not in taken and d.shape == o.shape \
+                    and d.dtype == o.dtype and d.device == o.device:
+                d.copy_(o)
+                leaves[j] = d
+                taken.add(k)
+                break
+        else:
+            if any(o is x for x in inputs):
+                leaves[j] = o.clone()
+    return pytree.tree_unflatten(leaves, spec)
+
+
+def _entry_point(fn: Callable, donate: Tuple[int, ...], label: str):
+    """``fn`` with :func:`_alias_results` applied, under a code object of
+    its own named ``label``: Dynamo keeps its cache, its recompiles and its
+    recompile limit per code object, and its automatic-dynamic record of
+    which sizes changed per code name, so each executable gets its own
+    code object and ``label`` must be unique."""
+    def entry(*args, **kwargs):
+        return _alias_results(fn(*args, **kwargs), args, donate)
+    code = entry.__code__.replace(co_name=label, co_qualname=label)
+    return types.FunctionType(code, entry.__globals__, label, None,
+                              entry.__closure__)
+
+
+def _host_scalar(a):
+    """A Python float argument as a 0-d float64 CPU tensor, so the compiled
+    graph takes it as an input and not as a constant to specialise on (one
+    compile per value), as ``jax.jit`` traces a Python scalar argument;
+    anything else as it is."""
+    return torch.tensor(a, dtype=torch.float64) if type(a) is float else a
+
+
+def compile_region_fn(fn: Callable, label: str,
+                      donate: Sequence[int] = (),
+                      stats: Optional[CompileStats] = None) -> Callable:
+    """``fn`` compiled with ``torch.compile(fullgraph=True)`` (a graph
+    break raises), the arguments at ``donate`` donated as in
+    :func:`_alias_results` and Python float arguments passed as 0-d
+    tensors (:func:`_host_scalar`); compiles and first-call time go to
+    ``stats``."""
+    _configure_compile()
+    stats = stats if stats is not None else CompileStats()
+    entry = _entry_point(fn, tuple(donate), "region_" + re.sub(
+        r"\W", "_", label) + f"_{next(_executable_ids)}")
+    stats.code = entry.__code__
+    compiled = torch.compile(entry, fullgraph=True)
+
+    def call(*args, **kwargs):
+        args = tuple(_host_scalar(a) for a in args)
+        kwargs = {k: _host_scalar(v) for k, v in kwargs.items()}
+        if stats.calls:
+            stats.calls += 1
+            return compiled(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = compiled(*args, **kwargs)
+        stats.first_call_s = time.perf_counter() - t0
+        stats.calls = 1
+        return out
+
+    call.stats = stats
+    return call
+
+
+def _on_host(fn: Callable) -> Callable:
+    """``fn`` run on the CPU: CUDA operands cross to it and the results
+    cross back to the operands' device."""
+    def on_host(*args, **kwargs):
+        home = _home_device((args, kwargs))
+        if home is None:
+            return fn(*args, **kwargs)
+        (args, kwargs), _ = _move((args, kwargs), _CPU)
+        return _move(fn(*args, **kwargs), home)[0]
+
+    return on_host
+
+
+# ---------------------------------------------------------------------------
 # Region
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(eq=False)        # identity semantics: hashable
 class Region:
-    """One directive-sized region: fn + variants + hints.
+    """One directive-sized region: fn + variants + compiled executables +
+    hints.
 
     ``stencil`` declares the neighbour-access pattern as ``(grid_axis,
     offset)`` pairs and ``halo_args`` the arguments whose neighbours are
-    read — plain metadata for a domain-decomposed replay."""
+    read — plain metadata for a domain-decomposed replay.
+
+    ``donate_args`` lists the positional arguments donated to the compiled
+    executable (``jax.jit(donate_argnums=...)`` in the reference): results
+    take over their storage (:func:`_alias_results`), so a pass-through
+    region such as serve's ``KV_APPEND`` commit returns its argument at
+    O(1) instead of copying it.  Donate only where the region is the last
+    reader of that argument.  Executors under a staging policy run
+    non-donating executables (``executable(donate=False)``): staged pages
+    belong to the pool."""
     name: str
     fn: Callable
     offloaded: bool = True
     size_fn: Callable = default_size
     stencil: Optional[Sequence[Tuple[int, int]]] = None
     halo_args: Optional[Sequence[Any]] = None
+    donate_args: Optional[Sequence[int]] = None
     ledger: Ledger = dataclasses.field(default_factory=lambda: GLOBAL_LEDGER)
 
     def __post_init__(self):
         self.name = self.ledger.register(self.name, self.offloaded)
         self.__name__ = getattr(self.fn, "__name__", "region")
         self._variants: Dict[str, Callable] = {"ref": self.fn}
+        #: (kind, variant, donating) -> compiled callable; kind is "host"
+        #: (CPU operands) or "device" (the ``default`` and ``device``
+        #: targets, which run on the operands as they are)
+        self._compiled: Dict[Tuple[str, str, bool], Callable] = {}
+        self._exec: Dict[Tuple[str, str, bool], Callable] = {}
+        #: compile record of each compiled callable, same keys
+        self.compile_stats: Dict[Tuple[str, str, bool], CompileStats] = {}
+        self._param_index = _param_indices(self.fn)
+        self._validate_donate_args()
+
+    def _validate_donate_args(self) -> None:
+        """Fail at declaration, not at compile time: donate_args must be
+        non-negative positional indices inside the signature (when it is
+        introspectable and takes no *args), and must not overlap halo_args
+        (a donated buffer is overwritten while a halo exchange still reads
+        its neighbours).  The errors are the reference's."""
+        if not self.donate_args:
+            return
+        bad = [d for d in self.donate_args
+               if not isinstance(d, int) or d < 0]
+        if bad:
+            raise ValueError(
+                f"region {self.name!r}: donate_args must be non-negative "
+                f"positional indices, got {bad!r}")
+        try:
+            params = list(inspect.signature(self.fn).parameters.values())
+        except (TypeError, ValueError):
+            params = None                      # not introspectable: skip
+        if params is not None and not any(
+                p.kind is inspect.Parameter.VAR_POSITIONAL for p in params):
+            n_pos = sum(1 for p in params if p.kind in (
+                inspect.Parameter.POSITIONAL_ONLY,
+                inspect.Parameter.POSITIONAL_OR_KEYWORD))
+            out = [d for d in self.donate_args if d >= n_pos]
+            if out:
+                raise ValueError(
+                    f"region {self.name!r}: donate_args {out} out of range "
+                    f"for a function with {n_pos} positional parameters "
+                    f"({tuple(self._param_index)})")
+        if self.halo_args:
+            halo_idx = {h for h in self.halo_args if isinstance(h, int)}
+            halo_idx |= {self._param_index[h] for h in self.halo_args
+                         if isinstance(h, str) and h in self._param_index}
+            clash = sorted(halo_idx & set(self.donate_args))
+            if clash:
+                raise ValueError(
+                    f"region {self.name!r}: donate_args {clash} overlap "
+                    f"halo_args {tuple(self.halo_args)}; a donated operand "
+                    "is deleted by XLA while the sharded halo exchange "
+                    "still reads its ghost cells — donate a different "
+                    "argument or drop it from halo_args")
 
     @property
     def variants(self) -> Tuple[str, ...]:
@@ -125,11 +410,15 @@ class Region:
         """Register a named implementation (``declare variant``); usable as
         a decorator.  Variants take the base function's arguments and
         return the same structure.  Re-registering ``ref`` replaces the
-        base function."""
+        base function.  Re-registering a variant drops its compiled
+        executables."""
         def register(f: Callable) -> Callable:
             self._variants[name] = f
             if name == "ref":
                 self.fn = f
+            for table in (self._compiled, self._exec, self.compile_stats):
+                for key in [k for k in table if k[1] == name]:
+                    del table[key]
             return f
         return register(fn) if fn is not None else register
 
@@ -144,40 +433,55 @@ class Region:
         """Declare-variant fallback: an unregistered name runs ``ref``."""
         return name if name in self._variants else "ref"
 
-    def executable(self, target: str = "default",
-                   impl: str = "ref") -> Callable:
-        """The callable of one (routing target, variant) pair, run eagerly
-        (compiling it is ROADMAP A.2).  ``default`` and ``device`` run the
-        variant on the operands as they are: where they live (the APU), or
-        on the card where the policy's stager or the caller put them.
-        ``host`` runs on the CPU: CUDA operands cross to it and the results
-        cross back (the module docstring).  Unknown names fall back to
-        ``ref``; a kernel variant on the host target raises."""
+    def _compiled_fn(self, kind: str, impl: str, donating: bool) -> Callable:
+        key = (kind, impl, donating)
+        call = self._compiled.get(key)
+        if call is None:
+            stats = self.compile_stats[key] = CompileStats()
+            call = self._compiled[key] = compile_region_fn(
+                self.impl_fn(impl), f"{self.name}_{impl}_{kind}",
+                tuple(self.donate_args or ()) if donating else (), stats)
+        return call
+
+    def executable(self, target: str = "default", impl: str = "ref",
+                   donate: bool = True) -> Callable:
+        """The compiled callable of one (routing target, variant, donation)
+        triple, cached.  ``default`` and ``device`` run the variant on the
+        operands as they are: where they live (the APU), or on the card
+        where the policy's stager or the caller put them; they share one
+        compiled callable.  ``host`` runs a callable compiled for the CPU:
+        CUDA operands cross to it and the results cross back (the module
+        docstring).  ``donate=False`` compiles without ``donate_args``
+        (staging executors, calibration loops).  Unknown names fall back
+        to ``ref``; a kernel variant on the host target raises.  Inside
+        :func:`disable_compile` the variant runs eagerly."""
         if target not in TARGETS:
             raise ValueError(f"target {target!r} is not one of {TARGETS}")
         impl = self.resolve(impl)
-        fn = self.impl_fn(impl)
-        if target != "host":
-            return fn
-        if impl == KERNEL_VARIANT:
+        if target == "host" and impl == KERNEL_VARIANT:
             raise ValueError(
                 f"region {self.name!r}: variant {impl!r} launches a CUDA "
                 "kernel and cannot run on the host target")
-
-        def on_host(*args, **kwargs):
-            home = _home_device((args, kwargs))
-            if home is None:
-                return fn(*args, **kwargs)
-            (args, kwargs), _ = _move((args, kwargs), _CPU)
-            return _move(fn(*args, **kwargs), home)[0]
-
-        return on_host
+        if compile_disabled():
+            fn = self.impl_fn(impl)
+            return _on_host(fn) if target == "host" else fn
+        donating = bool(donate and self.donate_args)
+        key = (target, impl, donating)
+        call = self._exec.get(key)
+        if call is None:
+            kind = "host" if target == "host" else "device"
+            call = self._compiled_fn(kind, impl, donating)
+            if target == "host":
+                call = _on_host(call)
+            self._exec[key] = call
+        return call
 
 
 def region(name: Optional[str] = None, *, offloaded: bool = True,
            ledger: Optional[Ledger] = None, size_fn: Optional[Callable] = None,
            stencil: Optional[Sequence[Tuple[int, int]]] = None,
-           halo_args: Optional[Sequence[Any]] = None):
+           halo_args: Optional[Sequence[Any]] = None,
+           donate_args: Optional[Sequence[int]] = None):
     """Decorator: mark a function as one offloadable region (listings 4-6).
 
         @region("Amul", stencil=dia.STENCIL_OFFSETS, halo_args=("x",))
@@ -188,6 +492,7 @@ def region(name: Optional[str] = None, *, offloaded: bool = True,
                       fn=fn, offloaded=offloaded,
                       size_fn=size_fn or default_size,
                       stencil=stencil, halo_args=halo_args,
+                      donate_args=donate_args,
                       ledger=ledger or GLOBAL_LEDGER)
     return wrap
 
@@ -468,7 +773,9 @@ class AdaptivePolicy(ComposedPolicy):
         ``make_args(n)`` builds operands whose ``size_fn`` is ``n``, where
         the application keeps them (on the card, the host executable pays
         the crossing).  Each timed loop of ``reps`` calls follows one
-        warm-up call and ends in a device synchronise."""
+        warm-up call, which absorbs any compile at that size (the first,
+        and the recompile for dynamic shapes at the second), and ends in a
+        device synchronise."""
         r = target_region
         self.calibration = {}
         crossover = None
@@ -477,7 +784,7 @@ class AdaptivePolicy(ComposedPolicy):
             ts = {}
             for tgt in ("host", "device"):
                 impl = self.selector.select(r, tgt, args, {}, size=n)
-                call = r.executable(tgt, impl)
+                call = r.executable(tgt, impl, donate=False)
                 call(*args)
                 synchronize()
                 t0 = time.perf_counter()
@@ -559,7 +866,10 @@ class Executor:
                 staging_s += time.perf_counter() - t0
                 staging_b += b
         t0 = time.perf_counter()
-        out = r.executable(tgt, impl)(*args, **kwargs)
+        # staged operands are pool pages: under a staging policy nothing
+        # is donated
+        out = r.executable(tgt, impl,
+                           donate=not pol.stager.stages)(*args, **kwargs)
         synchronize()
         compute_s = time.perf_counter() - t0
         if stage:

@@ -3,8 +3,9 @@ tables.
 
 Each subpackage ``<name>/`` is one compute hot-spot:
 
-* ``kernel.py`` — wrappers of the kernel (CUDA C++ from ``csrc/`` built by
-  :mod:`repro_torch.kernels.build`, or Triton), with launch counters;
+* ``kernel.py`` — the kernel (CUDA C++ from ``csrc/`` built by
+  :mod:`repro_torch.kernels.build`, or Triton) as a ``torch.library`` custom
+  op with fake and vmap rules, its checking wrappers, and launch counters;
 * ``ref.py``    — the plain PyTorch version: what the wrappers run on CPU
   tensors and what every kernel is held against on the card.
 

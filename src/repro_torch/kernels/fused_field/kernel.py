@@ -12,13 +12,20 @@ dtype on the host as the Pallas wrapper does, the expression is evaluated in
 f32 left to right, and FMA contraction is disabled, so in f32 the kernel
 reproduces the plain version (``ref.py``) bit for bit.
 
-``triton`` is imported at the first launch, never at module import.  Given
-CPU tensors a wrapper runs the plain version; given CUDA tensors it
-launches the kernel on the current stream or raises.
+``triton`` is imported at the first launch, never at module import.  The
+four wrappers call one ``torch.library`` custom op,
+``repro_torch::fused_field``, so a compiled region holds the kernel as one
+opaque node: on CUDA tensors it launches the kernel on the current stream
+or raises; on CPU tensors it runs the plain version; its fake
+implementation gives the output's shape and dtype; its vmap rule launches
+it once on the batched operands.  ``LAUNCHES`` counts in the op's body.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch import Tensor
 
 from repro_torch.kernels.fused_field import ref
 
@@ -82,45 +89,102 @@ def _check(name, arrays):
     return x0.device
 
 
-def _launch(name, scalars, x, y, z=None):
+NAMES = {v: k for k, v in OPS.items()}
+
+
+def _scalar(v) -> Tensor:
+    """A scalar as the 0-d float64 CPU tensor the op takes (a compiled
+    region passes its Python float arguments in as such tensors already:
+    a ``float`` argument of a custom op would be specialised, one compile
+    per value).  Reading it back in the op's body costs no device sync."""
+    if isinstance(v, Tensor):
+        return v.to(torch.float64)
+    return torch.full((), v, dtype=torch.float64)
+
+
+@torch.library.custom_op("repro_torch::fused_field", mutates_args=(),
+                         device_types="cuda")
+def fused_field_op(x: Tensor, y: Tensor, z: Optional[Tensor], a: Tensor,
+                   b: Tensor, op: int) -> Tensor:
+    """One launch of the K4 body: ``op`` 0 axpy ``y+a*x``, 1 xpay
+    ``x+a*y``, 2 mul ``x*y``, 3 axpbypz ``z+a*x+b*y``."""
     out = torch.empty_like(x)
     n = x.numel()
     if n:
-        a, b = (*scalars, 0.0, 0.0)[:2]          # unused scalars are 0
         kernel = _compiled()
         with torch.cuda.device(x.device):
             kernel[(-(-n // BLOCK),)](
                 x, y, x if z is None else z, out,
-                ref.cast_scalar(a, x.dtype), ref.cast_scalar(b, x.dtype), n,
-                OP=OPS[name], BLOCK=BLOCK, num_warps=4,
-                enable_fp_fusion=False)
-        LAUNCHES[name] += 1
+                ref.cast_scalar(a.item(), x.dtype),
+                ref.cast_scalar(b.item(), x.dtype), n,
+                OP=op, BLOCK=BLOCK, num_warps=4, enable_fp_fusion=False)
+        LAUNCHES[NAMES[op]] += 1
     return out
+
+
+@fused_field_op.register_kernel("cpu")
+def _fused_field_plain(x, y, z, a, b, op):
+    a, b = a.item(), b.item()
+    if op == 0:
+        return ref.fused_axpy(a, x, y)
+    if op == 1:
+        return ref.fused_xpay(a, x, y)
+    if op == 2:
+        return ref.fused_mul(x, y)
+    return ref.fused_axpbypz(a, x, b, y, z)
+
+
+@fused_field_op.register_fake
+def _fused_field_fake(x, y, z, a, b, op):
+    return torch.empty_like(x)
+
+
+@fused_field_op.register_vmap
+def _fused_field_vmap(info, in_dims, x, y, z, a, b, op):
+    """Elementwise: the fields go in batched as they are (an unbatched one
+    broadcast over the batch) and the scalars broadcast; a batched scalar
+    takes one call per batch row."""
+    n = info.batch_size
+    if in_dims[3] is not None or in_dims[4] is not None:
+        return torch.stack([fused_field_op(
+            *(t if d is None or t is None else t.select(d, i)
+              for t, d in zip((x, y, z, a, b), in_dims[:5])), op)
+            for i in range(n)]), 0
+
+    def batched(t, d):
+        if t is None:
+            return None
+        t = t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
+        return t.contiguous()
+
+    return fused_field_op(batched(x, in_dims[0]), batched(y, in_dims[1]),
+                          batched(z, in_dims[2]), a, b, op), 0
+
+
+def _launch(name, scalars, x, y, z=None):
+    a, b = (*scalars, 0.0, 0.0)[:2]          # unused scalars are 0
+    return fused_field_op(x, y, z, _scalar(a), _scalar(b), OPS[name])
 
 
 def fused_axpy(a, x, y):
     """y + a*x"""
-    if _check("fused_axpy", (x, y)).type == "cpu":
-        return ref.fused_axpy(a, x, y)
+    _check("fused_axpy", (x, y))
     return _launch("fused_axpy", (a,), x, y)
 
 
 def fused_xpay(a, x, y):
     """x + a*y"""
-    if _check("fused_xpay", (x, y)).type == "cpu":
-        return ref.fused_xpay(a, x, y)
+    _check("fused_xpay", (x, y))
     return _launch("fused_xpay", (a,), x, y)
 
 
 def fused_mul(x, y):
     """x*y"""
-    if _check("fused_mul", (x, y)).type == "cpu":
-        return ref.fused_mul(x, y)
+    _check("fused_mul", (x, y))
     return _launch("fused_mul", (), x, y)
 
 
 def fused_axpbypz(a, x, b, y, z):
     """z + a*x + b*y"""
-    if _check("fused_axpbypz", (x, y, z)).type == "cpu":
-        return ref.fused_axpbypz(a, x, b, y, z)
+    _check("fused_axpbypz", (x, y, z))
     return _launch("fused_axpbypz", (a, b), x, y, z)

@@ -6,14 +6,20 @@ and their composition ``rb_dilu``.  All three are bound by HBM bytes (36-37
 B per cell, ~0.4 flop/B); the kernels make one coalesced pass and read no
 padded copy (see the note in the CUDA source).
 
-Each wrapper checks device, dtype, shape and contiguity and raises on
-anything else.  Given CPU tensors it runs the plain version (``ref.py``);
-given CUDA tensors it launches its kernel on the current stream without
-synchronising, or raises.  ``LAUNCHES`` counts kernel launches only.
+Each kernel is a ``torch.library`` custom op (``repro_torch::<name>``), so
+a compiled region holds it as one opaque node: its CUDA implementation
+launches the kernel on the current stream without synchronising, or
+raises; its CPU implementation is the plain version (``ref.py``); its fake
+implementation gives the output's shape and dtype, symbolic sizes
+included; its vmap rule calls it once per batch row.  Each wrapper checks
+device, dtype, shape and contiguity, raises on anything else, and calls
+its op.  ``LAUNCHES`` counts kernel launches only, in the op's body, so
+every call of a compiled graph counts too.
 """
 from __future__ import annotations
 
 import torch
+from torch import Tensor
 
 from repro_torch.kernels import build
 from repro_torch.kernels.stencil_spmv import ref
@@ -53,37 +59,78 @@ def _check(name, fields, off, red=None):
     return dev
 
 
+def _launch(name, entry, operands):
+    """One launch of ``entry`` on ``operands`` into a fresh output shaped
+    like the last operand."""
+    out = torch.empty_like(operands[-1])
+    if out.numel():
+        build.launch(entry, (*operands, out), out.shape)
+        LAUNCHES[name] += 1
+    return out
+
+
+def _row_by_row(op):
+    """vmap rule of a 3-D field op: one call (one launch) per batch row,
+    the kernel unchanged."""
+    def rule(info, in_dims, *args):
+        rows = [op(*(a if d is None else a.select(d, b)
+                     for a, d in zip(args, in_dims)))
+                for b in range(info.batch_size)]
+        return torch.stack(rows), 0
+    return rule
+
+
+def _register(op, name):
+    """CPU kernel = the plain version ``ref.<name>`` (looked up at each
+    call); fake = a fresh field like the last operand; vmap = row by row."""
+    op.register_kernel("cpu")(lambda *args: getattr(ref, name)(*args))
+    op.register_fake(lambda *args: torch.empty_like(args[-1]))
+    op.register_vmap(_row_by_row(op))
+
+
+@torch.library.custom_op("repro_torch::stencil_spmv", mutates_args=(),
+                         device_types="cuda")
+def stencil_spmv_op(diag: Tensor, off: Tensor, x: Tensor) -> Tensor:
+    return _launch("stencil_spmv", "stencil_spmv_f32", (diag, off, x))
+
+
+@torch.library.custom_op("repro_torch::rb_dilu_forward", mutates_args=(),
+                         device_types="cuda")
+def rb_dilu_forward_op(rdiag: Tensor, red: Tensor, off: Tensor,
+                       r: Tensor) -> Tensor:
+    return _launch("rb_dilu_forward", "rb_dilu_forward_f32",
+                   (rdiag, red, off, r))
+
+
+@torch.library.custom_op("repro_torch::rb_dilu_backward", mutates_args=(),
+                         device_types="cuda")
+def rb_dilu_backward_op(rdiag: Tensor, red: Tensor, off: Tensor,
+                        y: Tensor) -> Tensor:
+    return _launch("rb_dilu_backward", "rb_dilu_backward_f32",
+                   (rdiag, red, off, y))
+
+
+_register(stencil_spmv_op, "stencil_spmv")
+_register(rb_dilu_forward_op, "rb_dilu_forward")
+_register(rb_dilu_backward_op, "rb_dilu_backward")
+
+
 def stencil_spmv(diag, off, x):
     """diag [nx,ny,nz]; off [6,nx,ny,nz]; x [nx,ny,nz] -> y = A x."""
-    if _check("stencil_spmv", (diag, x), off).type == "cpu":
-        return ref.stencil_spmv(diag, off, x)
-    y = torch.empty_like(x)
-    if x.numel():
-        build.launch("stencil_spmv_f32", (diag, off, x, y), x.shape)
-        LAUNCHES["stencil_spmv"] += 1
-    return y
+    _check("stencil_spmv", (diag, x), off)
+    return stencil_spmv_op(diag, off, x)
 
 
 def rb_dilu_forward(rdiag, red, off, r):
     """Forward half-sweep of the red-black DILU (K2)."""
-    if _check("rb_dilu_forward", (rdiag, r), off, red).type == "cpu":
-        return ref.rb_dilu_forward(rdiag, red, off, r)
-    w = torch.empty_like(r)
-    if r.numel():
-        build.launch("rb_dilu_forward_f32", (rdiag, red, off, r, w), r.shape)
-        LAUNCHES["rb_dilu_forward"] += 1
-    return w
+    _check("rb_dilu_forward", (rdiag, r), off, red)
+    return rb_dilu_forward_op(rdiag, red, off, r)
 
 
 def rb_dilu_backward(rdiag, red, off, y):
     """Backward half-sweep of the red-black DILU (K3)."""
-    if _check("rb_dilu_backward", (rdiag, y), off, red).type == "cpu":
-        return ref.rb_dilu_backward(rdiag, red, off, y)
-    z = torch.empty_like(y)
-    if y.numel():
-        build.launch("rb_dilu_backward_f32", (rdiag, red, off, y, z), y.shape)
-        LAUNCHES["rb_dilu_backward"] += 1
-    return z
+    _check("rb_dilu_backward", (rdiag, y), off, red)
+    return rb_dilu_backward_op(rdiag, red, off, y)
 
 
 def rb_dilu(rdiag, red, off, r):

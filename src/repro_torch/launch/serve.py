@@ -15,20 +15,26 @@ selection carried through to the entry point, not a new feature; the
 ``ref`` variant keeps the reference's chunked closed form.  Decode runs
 the sequential scan with T=1, as in the reference.
 
-The uncaptured path (:func:`build_server` + :func:`decode_stream`) runs
-the same step functions without regions.  Under the unified policy the
-replayed tokens are asserted equal to its tokens on every run: capture
-changes the schedule, never the tokens.
+Every region runs as a compiled executable (``torch.compile``,
+``fullgraph=True``); ``KV_APPEND`` donates its cache, so the commit
+returns the cache's own storage.  The uncaptured path (:func:`build_server`
++ :func:`decode_stream`) compiles the same step functions without
+regions, its decode step with the cache donated; its decode step is the
+very function ``DECODE_STEP`` runs (decode + argmax), so both compile the
+same graph.  Under the unified policy the replayed tokens are asserted
+equal to its tokens on every run: capture changes the schedule, never the
+tokens.  ``--replay-batch N`` also prefills N request groups and replays
+the captured decode program over all of them at once through
+:meth:`~repro_torch.core.program.RegionProgram.replay_batch`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --batch 4 --prompt-len 1024 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
-        --device cpu --impl ref --prompt-len 32 --gen 8
+        --device cpu --impl ref --prompt-len 32 --gen 8 --replay-batch 2
 
 Runs on CUDA unless ``--device cpu`` is given; asking for CUDA where there
-is none raises.  The engine, ``--replay-batch``, ``--mesh``,
-``--offload-kv``, ``--verify``, ``--sync-every`` and the KV budgets wait
-(ROADMAP A.5, A.6, A.8).
+is none raises.  The engine, ``--mesh``, ``--offload-kv``, ``--verify``,
+``--sync-every`` and the KV budgets wait (ROADMAP A.6, A.8, A.9).
 """
 from __future__ import annotations
 
@@ -39,13 +45,15 @@ import time
 from typing import Any, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.configs.reduced import reduced as make_reduced
 from repro_torch.configs.registry import get_config
 from repro_torch.core.ledger import Ledger
 from repro_torch.core.program import capture
-from repro_torch.core.regions import (Executor, StaticSelector, region,
-                                      synchronize)
+from repro_torch.core.regions import (Executor, StaticSelector,
+                                      compile_disabled, compile_region_fn,
+                                      region, synchronize)
 from repro_torch.core.umem import MemSpace, resolve_device, tree_place
 from repro_torch.launch.policy import POLICY_CHOICES, lm_policy
 from repro_torch.models import transformer as T
@@ -55,9 +63,29 @@ from repro_torch.train import step as S
 PREFILL_RWKV_IMPL = {"ref": None, "hopper": "hopper"}
 
 
+def position(p: int) -> torch.Tensor:
+    """A decode position as a 0-d int32 tensor on the host, as the
+    reference passes ``jnp.int32(pos)``: a compiled decode step takes it as
+    an input, not as a constant to compile anew for each position."""
+    return torch.tensor(p, dtype=torch.int32)
+
+
 def greedy(logits) -> torch.Tensor:
     """Argmax of the last position's logits, as int32 tokens [B]."""
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+
+def make_greedy_decode(cfg):
+    """``(params, tok, cache, pos) -> (next tok, cache)``: one decode step
+    and its argmax, the function both ``DECODE_STEP`` and the uncaptured
+    path's decode step run."""
+    raw_decode = S.make_decode_step(cfg)
+
+    def greedy_decode(params, tok, cache, pos):
+        logits, cache = raw_decode(params, tok, cache, pos)
+        return greedy(logits), cache
+
+    return greedy_decode
 
 
 @dataclasses.dataclass
@@ -76,12 +104,17 @@ def make_serve_regions(cfg, params, *,
     ``KV_APPEND`` is the cache *commit* directive: the state update runs
     inside the step, and this identity region is where the ledger
     accounts the per-token commit.  ``offloaded=False``: committing is
-    bookkeeping, so no policy stages the whole state twice per token."""
+    bookkeeping, so no policy stages the whole state twice per token.  It
+    donates its cache (``donate_args=(0,)``), as the reference's does: the
+    cache fed to it is always the previous region's output, never a
+    program input, and the commit is its last reader, so the commit
+    returns that storage at O(1); without donation (a staging policy) it
+    returns a copy."""
     prefill_steps = {
         name: S.make_prefill_step(
             cfg, lambda impl=impl: T.Ctx(mode="prefill", rwkv_impl=impl))
         for name, impl in PREFILL_RWKV_IMPL.items()}
-    raw_decode = S.make_decode_step(cfg)
+    greedy_decode = make_greedy_decode(cfg)
 
     @region("PREFILL", ledger=ledger)
     def prefill_region(batch, cache):
@@ -95,10 +128,9 @@ def make_serve_regions(cfg, params, *,
 
     @region("DECODE_STEP", ledger=ledger)
     def decode_region(tok, cache, pos):
-        logits, cache = raw_decode(params, tok, cache, pos)
-        return greedy(logits), cache
+        return greedy_decode(params, tok, cache, pos)
 
-    @region("KV_APPEND", ledger=ledger, offloaded=False)
+    @region("KV_APPEND", ledger=ledger, offloaded=False, donate_args=(0,))
     def kv_append(cache):
         return cache
 
@@ -127,13 +159,15 @@ def capture_decode_program(regions: ServeRegions, prompt_len: int, gen: int,
                            name: str = "decode_program", selector=None):
     """The greedy decode loop as one RegionProgram: each generated token
     is one ``DECODE_STEP`` whose state flows into a ``KV_APPEND`` commit
-    and on to the next token; positions are frozen constants.  Returns
+    and on to the next token; positions are frozen constants
+    (:func:`position` tensors).  Returns
     the ``gen`` tokens (the first is the prefill's) as a tuple.  Capture
     runs the variants ``selector`` picks."""
     def gen_loop(run, tok, cache):
         toks = [tok]
         for i in range(gen - 1):
-            tok, cache = run(regions.decode_step, tok, cache, prompt_len + i)
+            tok, cache = run(regions.decode_step, tok, cache,
+                             position(prompt_len + i))
             cache = run(regions.kv_append, cache)
             toks.append(tok)
         return tuple(toks)
@@ -147,10 +181,18 @@ def capture_decode_program(regions: ServeRegions, prompt_len: int, gen: int,
 # ---------------------------------------------------------------------------
 
 def build_server(cfg, batch: int, device, rwkv_impl: Optional[str] = None):
-    """(prefill, decode, make_cache) step functions without regions."""
+    """(prefill, decode, make_cache) step functions without regions, each
+    compiled (``fullgraph=True``) as the reference jits them, unless built
+    inside ``disable_compile``.  ``prefill(params, batch, cache) ->
+    (logits, cache)``; ``decode(params, tok, cache, pos) -> (next tok,
+    cache)`` with the cache (argument 2) donated: the new state is written
+    over the old one, which the caller must not read again."""
     prefill = S.make_prefill_step(
         cfg, lambda: T.Ctx(mode="prefill", rwkv_impl=rwkv_impl))
-    decode = S.make_decode_step(cfg)
+    decode = make_greedy_decode(cfg)
+    if not compile_disabled():
+        prefill = compile_region_fn(prefill, f"prefill_{rwkv_impl}")
+        decode = compile_region_fn(decode, "decode", donate=(2,))
     return prefill, decode, lambda: T.init_cache(cfg, batch, device)
 
 
@@ -158,11 +200,39 @@ def decode_stream(decode, params, tok, cache, prompt_len: int, gen: int):
     """Greedy decode without regions; one synchronise at the end."""
     toks = [tok]
     for i in range(gen - 1):
-        logits, cache = decode(params, tok, cache, prompt_len + i)
-        tok = greedy(logits)
+        tok, cache = decode(params, tok, cache, position(prompt_len + i))
         toks.append(tok)
     synchronize()
     return toks, cache
+
+
+def replay_request_groups(cfg, ex, decode_prog, prefill, make_cache, params,
+                          args, n_groups: int, device):
+    """The heavy-traffic path: prefill ``n_groups`` independent request
+    groups (prompts from ``--seed`` + 1), then push all of them through the
+    captured decode program at once as one vmapped composite
+    (:meth:`~repro_torch.core.program.RegionProgram.replay_batch`), and
+    replay each group alone through the same program.  Returns the tokens
+    [N, B, gen] of the batched and of the solo replays (on the host), and
+    the batched call's seconds."""
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    toks, caches = [], []
+    for _ in range(n_groups):
+        prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                                generator=gen, device=device,
+                                dtype=torch.int32)
+        logits, cache = prefill(params, {"tokens": prompts}, make_cache())
+        toks.append(greedy(logits))
+        caches.append(cache)
+    stacked_cache = pytree.tree_map(lambda *xs: torch.stack(xs), *caches)
+    t0 = time.perf_counter()
+    out = decode_prog.replay_batch(torch.stack(toks), stacked_cache,
+                                   executor=ex, selector=ex.policy.selector)
+    dt = time.perf_counter() - t0
+    seqs = torch.stack(out, dim=-1).cpu()                 # (N, B, gen)
+    solo = torch.stack([torch.stack(decode_prog.replay(ex, t, c), dim=-1)
+                        for t, c in zip(toks, caches)]).cpu()
+    return seqs, solo, dt
 
 
 def main(argv=None):
@@ -177,12 +247,18 @@ def main(argv=None):
                     help="variant the policy's selector picks: hopper runs "
                          "prefill's time-mix scan on the CUDA kernel K5")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--replay-batch", type=int, default=0, metavar="N",
+                    help="also prefill N request groups and replay the "
+                         "captured decode program over all of them at once "
+                         "(RegionProgram.replay_batch)")
     ap.add_argument("--report", action="store_true",
                     help="print the run's coverage_report() as JSON")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.gen < 1:
         ap.error("--gen must be >= 1")
+    if args.replay_batch < 0:
+        ap.error("--replay-batch must be >= 0")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -219,10 +295,10 @@ def main(argv=None):
 
     # -- the uncaptured path: under the unified policy, the oracle -------
     stream_note = ""
+    impl = PREFILL_RWKV_IMPL[regions.prefill.resolve(args.impl)]
+    prefill, decode, make_cache = build_server(cfg, args.batch, device,
+                                               rwkv_impl=impl)
     if args.policy == "unified":
-        impl = PREFILL_RWKV_IMPL[regions.prefill.resolve(args.impl)]
-        prefill, decode, make_cache = build_server(cfg, args.batch, device,
-                                                   rwkv_impl=impl)
         logits, cache_j = prefill(params, batch, make_cache())
         t2 = time.perf_counter()
         toks_j, _ = decode_stream(decode, params, greedy(logits), cache_j,
@@ -241,6 +317,17 @@ def main(argv=None):
           f"{args.batch}x{args.prompt_len} in {t_prefill * 1e3:.1f} ms; decode "
           f"{total_new} tokens in {t_decode * 1e3:.1f} ms "
           f"({total_new / max(t_decode, 1e-9):.0f} tok/s program{stream_note})")
+    if args.replay_batch:
+        n = args.replay_batch
+        seqs, solo, dt = replay_request_groups(
+            cfg, ex, decode_prog, prefill, make_cache, params, args, n,
+            device)
+        agree = (seqs == solo).float().mean().item()
+        total = seqs.numel()
+        print(f"[serve] replay_batch: {n} request groups x {args.batch}x"
+              f"{args.gen} tokens = {total} tokens in {dt * 1e3:.1f} ms "
+              f"({total / max(dt, 1e-9):.0f} tok/s); solo-replay agreement "
+              f"{agree:.3f}")
     if args.report:
         print(json.dumps(ex.report(), indent=1, default=str))
     return seq

@@ -23,10 +23,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch.core.regions import (CompileStats, compile_disabled,
+                                      compile_region_fn)
 from repro_torch.core.umem import tree_map
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.layers import (embed, embed_specs, lm_logits, noshard,
@@ -193,29 +195,150 @@ def layer_fwd(p, x, cfg, mixer: str, mlp_kind: str, ctx: Ctx, cache=None):
 # Backbone drivers
 # ---------------------------------------------------------------------------
 
-def _run_layers(params, x, cfg, ctx: Ctx, caches=None):
-    """Run the layer program; returns (x, new_caches or None)."""
+def _leaves(tree: dict) -> list:
+    """The tensors of a nested dict, in sorted-key order."""
+    return [leaf for k in sorted(tree)
+            for leaf in (_leaves(tree[k]) if isinstance(tree[k], dict)
+                         else [tree[k]])]
+
+
+def _rebuild(template: dict, leaves) -> dict:
+    """Inverse of :func:`_leaves` over ``template``'s keys (an iterator)."""
+    return {k: (_rebuild(template[k], leaves) if isinstance(template[k], dict)
+                else next(leaves)) for k in sorted(template)}
+
+
+#: every :class:`LayerOp` made so far, by (cfg, mixer, mlp_kind, mode, shd,
+#: rwkv_chunk, rwkv_impl): steps of one config and mode share one
+LAYER_OPS: Dict[tuple, "LayerOp"] = {}
+
+
+class LayerOp:
+    """One layer kind of ``cfg`` under ``ctx`` as a custom op,
+    ``repro_torch::<label>``, whose body runs the layer compiled once
+    (:func:`~repro_torch.core.regions.compile_region_fn`, ``fullgraph``;
+    the layer itself inside ``disable_compile``).
+
+    A compiled step holds each layer call as one opaque node, so its graph
+    and its compile time do not grow with the depth: the layer compiles
+    once, when a step first runs it, however many layers call it.  (A
+    ``torch.compiler.nested_compile_region`` keeps one graph too, but on
+    torch 2.11 Dynamo traced and Inductor lowered every call of it anew,
+    and it has no batching rule.)
+
+    The op's outputs are ``x`` and the new cache leaves, contiguous; its
+    fake implementation gives each the shape, dtype and layout of the input
+    it replaces (a layer maps ``x`` and its recurrent state to tensors like
+    them).  Its vmap rule calls it once per row of the vmapped axis, so a
+    batched replay runs the solo replay's compiled layer at its shapes."""
+
+    def __init__(self, cfg, mixer: str, mlp_kind: str, ctx: Ctx):
+        self.label = (f"layer_{mixer}_{mlp_kind}_{ctx.mode}_"
+                      f"{ctx.rwkv_impl or 'ref'}_{len(LAYER_OPS)}")
+        self.stats = CompileStats()
+        self._compiled = None
+        template = _one_layer_specs(cfg, mixer, mlp_kind)
+        self._cache_keys = tuple(_one_layer_cache_specs(cfg, mixer, 1))
+
+        def layer(params, x, cache):
+            p = _rebuild(template, iter(params))
+            c = dict(zip(self._cache_keys, cache)) if cache else None
+            x, nc = layer_fwd(p, x, cfg, mixer, mlp_kind, ctx, c)
+            return [x] if nc is None else [x, *(nc[k] for k in
+                                                self._cache_keys)]
+        self.layer = layer
+
+        @torch.library.custom_op(f"repro_torch::{self.label}",
+                                 mutates_args=())
+        def op(params: List[torch.Tensor], x: torch.Tensor,
+               cache: List[torch.Tensor]) -> List[torch.Tensor]:
+            if compile_disabled():
+                outs = layer(params, x, cache)
+            else:
+                # one dispatch state on every call: the compiled graph's
+                # first run reaches here with ADInplaceOrView excluded, a
+                # later run not, and Dynamo guards on it (a recompile)
+                with torch._C._AutoDispatchBelowADInplaceOrView():
+                    outs = self._executable()(params, x, cache)
+            return [o.contiguous() for o in outs]
+
+        @op.register_fake
+        def _(params, x, cache):
+            return [torch.empty_like(t, memory_format=torch.contiguous_format)
+                    for t in (x, *cache)]
+
+        @op.register_vmap
+        def _(info, in_dims, params, x, cache):
+            def row(t, d, i):
+                return t if d is None else t.select(d, i).contiguous()
+            outs = [op([row(t, d, i) for t, d in zip(params, in_dims[0])],
+                       row(x, in_dims[1], i),
+                       [row(t, d, i) for t, d in zip(cache, in_dims[2])])
+                    for i in range(info.batch_size)]
+            return [torch.stack(o) for o in zip(*outs)], [0] * len(outs[0])
+
+        self.op = op
+
+    def _executable(self):
+        if self._compiled is None:
+            self._compiled = compile_region_fn(self.layer, self.label,
+                                               stats=self.stats)
+        return self._compiled
+
+    def __call__(self, p, x, cache=None):
+        """``(x, new cache or None)`` of one layer with parameters ``p``."""
+        keys = self._cache_keys if cache is not None else ()
+        x, *state = self.op(_leaves(p), x, [cache[k] for k in keys])
+        return x, (None if cache is None else
+                   {k: state[keys.index(k)] for k in cache})
+
+
+def layer_fns(cfg, ctx: Ctx) -> dict:
+    """``{(mixer, mlp_kind): LayerOp}`` for the layer kinds of ``cfg`` under
+    ``ctx`` (the mode's context; its ``pos`` is not read: the ported mixer
+    does not use it), made once per config and context.  Build them outside
+    any compiled function and pass them to :func:`prefill` /
+    :func:`decode_step` as ``layers``."""
+    fns = {}
+    for mk, lk in dict.fromkeys(layer_kinds(cfg)):
+        key = (cfg, mk, lk, ctx.mode, ctx.shd, ctx.rwkv_chunk, ctx.rwkv_impl)
+        if key not in LAYER_OPS:
+            LAYER_OPS[key] = LayerOp(cfg, mk, lk, ctx)
+        fns[(mk, lk)] = LAYER_OPS[key]
+    return fns
+
+
+def _run_layers(params, x, cfg, ctx: Ctx, caches=None, layers=None):
+    """Run the layer program; returns (x, new_caches or None).  ``layers``
+    (from :func:`layer_fns`) runs each layer through its kind's op, else
+    each layer runs inline."""
     new_caches = []
     for i, (mk, lk) in enumerate(layer_kinds(cfg)):
         c = caches[i] if caches is not None else None
-        x, nc = layer_fwd(params["layers"][i], x, cfg, mk, lk, ctx, c)
+        if layers is None:
+            x, nc = layer_fwd(params["layers"][i], x, cfg, mk, lk, ctx, c)
+        else:
+            x, nc = layers[(mk, lk)](params["layers"][i], x, c)
         new_caches.append(nc)
     return x, (new_caches if caches is not None else None)
 
 
-def prefill(params, batch, cfg, ctx: Ctx, caches):
-    """Fill caches from a full prompt; returns (last-token logits, caches)."""
+def prefill(params, batch, cfg, ctx: Ctx, caches, layers=None):
+    """Fill caches from a full prompt; returns (last-token logits, caches).
+    ``layers``: :func:`layer_fns` of ``cfg`` in prefill mode, or None."""
     ctx = dataclasses.replace(ctx, mode="prefill")
     x = embed(params["embed"], batch["tokens"], cfg, ctx.shd)
-    x, caches = _run_layers(params, x, cfg, ctx, caches)
+    x, caches = _run_layers(params, x, cfg, ctx, caches, layers)
     x = rmsnorm(x[:, -1:], params["final_norm"])
     return lm_logits(params["embed"], x, cfg, ctx.shd), caches
 
 
-def decode_step(params, token, caches, pos, cfg, ctx: Ctx):
-    """token [B] int; pos int.  Returns (logits [B,1,V], caches)."""
+def decode_step(params, token, caches, pos, cfg, ctx: Ctx, layers=None):
+    """token [B] int; pos int or 0-d int tensor.  Returns (logits [B,1,V],
+    caches).
+    ``layers``: :func:`layer_fns` of ``cfg`` in decode mode, or None."""
     ctx = dataclasses.replace(ctx, mode="decode", pos=pos)
     x = embed(params["embed"], token[:, None], cfg, ctx.shd)
-    x, caches = _run_layers(params, x, cfg, ctx, caches)
+    x, caches = _run_layers(params, x, cfg, ctx, caches, layers)
     x = rmsnorm(x, params["final_norm"])
     return lm_logits(params["embed"], x, cfg, ctx.shd), caches

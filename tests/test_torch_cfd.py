@@ -17,6 +17,18 @@ from repro_torch.cfd import dia, fvc, fvm, grid as tgrid, precond
 from repro_torch.cfd.convert import from_numpy
 from repro_torch.cfd.simple import (SimpleConfig, SimpleFoam, SimpleState,
                                     init_state)
+from repro_torch.core.regions import disable_compile
+
+
+@pytest.fixture(autouse=True)
+def _eager():
+    """Regions run eagerly here (``disable_compile``, the counterpart of
+    ``jax.disable_jit()``): compiling every region would cost seconds per
+    test on the CPU.  Compiled executables are tested in
+    tests/test_torch_compile.py."""
+    with disable_compile():
+        yield
+
 
 GRIDS = [(4, 3, 5), (6, 6, 6), (8, 8, 8)]
 TOL = dict(rtol=3e-4, atol=1e-4)

@@ -24,7 +24,18 @@ from repro_torch.cfd.solvers import make_solver_regions, pbicgstab_regions
 from repro_torch.core.ledger import Ledger
 from repro_torch.core.pool import DeviceBufferPool, HostStagingPool
 from repro_torch.core.regions import (DiscretePolicy, Executor, StaticSelector,
-                                      TargetSelector, UnifiedPolicy, region)
+                                      TargetSelector, UnifiedPolicy, region,
+                                      disable_compile)
+
+
+@pytest.fixture(autouse=True)
+def _eager():
+    """Regions run eagerly here (``disable_compile``, the counterpart of
+    ``jax.disable_jit()``): compiling every region would cost seconds per
+    test on the CPU.  Compiled executables are tested in
+    tests/test_torch_compile.py."""
+    with disable_compile():
+        yield
 
 
 def _system(shape, seed=0):

@@ -11,6 +11,21 @@ also why the run skips ``tests/conftest.py`` (it imports JAX).
 """
 import pytest
 import torch
+from repro_torch.core.regions import disable_compile
+
+
+@pytest.fixture(autouse=True)
+def _eager(request):
+    """Regions run eagerly here (``disable_compile``, the counterpart of
+    ``jax.disable_jit()``), as before regions were compiled, except in the
+    tests that ask for the ``compiled`` fixture (compiled executables on
+    the CPU are tested in tests/test_torch_compile*.py)."""
+    if "compiled" in request.fixturenames:
+        yield
+        return
+    with disable_compile():
+        yield
+
 
 pytestmark = pytest.mark.gpu
 
@@ -366,3 +381,110 @@ def test_cfd_cli_runs_every_policy_and_replay_on_card(cuda, argv):
         assert row["fom_s_per_step"] > 0
     if "--replay" in argv:
         assert 0.0 <= rows[0]["overlap_fraction"] <= 1.0
+
+
+@pytest.fixture
+def compiled():
+    """Asked for by the tests that run the regions compiled (the module's
+    ``_eager`` fixture then steps aside)."""
+    return True
+
+
+def test_compiled_hopper_step_matches_compiled_ref_step(cuda, compiled):
+    """At 37x29x23, both steps through compiled executables (the kernels
+    as custom ops in the hopper graphs): within the step envelope, and the
+    hopper step launches as many kernels compiled as eagerly.  Three
+    PBiCGStab iterations a solve, as ``chip_smoke.py``'s ``[policies]``:
+    the compiled ``ref`` glue rounds its own way, and many iterations on
+    the pinned pressure system would amplify that past the envelope."""
+    from repro_torch.cfd.grid import Grid
+    from repro_torch.cfd.simple import SimpleConfig, SimpleFoam, init_state
+    from repro_torch.core.regions import (Executor, StaticSelector,
+                                          UnifiedPolicy, disable_compile)
+    from repro_torch.kernels.fused_field import kernel as FK
+    from repro_torch.kernels.stencil_spmv import kernel as SK
+    cfg = SimpleConfig(Grid((37, 29, 23), device=cuda), nu=0.1, inner_max=3,
+                       tol_u=0.0, tol_p=0.0)
+
+    def step(impl):
+        app = SimpleFoam(cfg, executor=Executor(
+            UnifiedPolicy(selector=StaticSelector(impl))))
+        before = {**SK.LAUNCHES, **FK.LAUNCHES}
+        st = init_state(cfg)
+        for _ in range(2):
+            st, _ = app.time_step(st)
+        after = {**SK.LAUNCHES, **FK.LAUNCHES}
+        return st, {k: after[k] - before[k] for k in after}, app
+
+    hop, launched, app = step("hopper")
+    ref, _, _ = step("ref")
+    for f in "uvwp":
+        a, b = getattr(ref, f), getattr(hop, f)
+        assert (a - b).abs().max().item() <= \
+            1e-5 * max(1.0, a.abs().max().item())
+    assert app.solver_regions.amul.compile_stats
+    with disable_compile():
+        _, launched_eager, _ = step("hopper")
+    assert launched == launched_eager
+    assert min(launched[k] for k in ("stencil_spmv", "rb_dilu_forward",
+                                     "rb_dilu_backward", "fused_axpy",
+                                     "fused_axpbypz")) > 0
+
+
+def test_compiled_serve_reduced_tokens_and_kernel_launches(cuda, compiled):
+    """The serve entry point compiled (its default) on the card: replayed
+    tokens equal the uncaptured path's (asserted inside ``main``) and each
+    prefill (capture, replay, uncaptured) launches K5 once per layer."""
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.rwkv6_scan import kernel as K
+    from repro_torch.launch.serve import main
+    n_layers = reduced(get_config("rwkv6-7b")).n_layers
+    before = K.LAUNCHES["rwkv6_scan"]
+    seq = main(["--reduced", "--prompt-len", "96", "--gen", "4"])
+    assert seq.shape == (4, 4)
+    assert K.LAUNCHES["rwkv6_scan"] - before == 3 * n_layers
+
+
+def test_replay_batch_runs_the_field_kernels_on_card(cuda, compiled):
+    """A captured PBiCGStab solve (K1-K4 through the hopper variants)
+    replayed two instances wide through ``replay_batch``: the vmap rules
+    launch the kernels, and each instance equals its solo replay within the
+    step envelope."""
+    import types
+    from repro_torch.cfd import fvm
+    from repro_torch.cfd.dia import DiaMatrix
+    from repro_torch.cfd.grid import Grid
+    from repro_torch.cfd.precond import rb_dilu_factor
+    from repro_torch.cfd.solvers import make_solver_regions, pbicgstab_regions
+    from repro_torch.core.program import capture
+    from repro_torch.core.regions import (Executor, TargetSelector,
+                                          UnifiedPolicy)
+    from repro_torch.kernels.fused_field import kernel as FK
+    from repro_torch.kernels.stencil_spmv import kernel as SK
+    grid = Grid((24, 20, 16), device=cuda)
+    A, _ = fvm.laplacian(grid, 1.0)
+    A = DiaMatrix(A.diag + 0.5, A.off)
+    red = grid.red_black_masks()[0]
+    P = rb_dilu_factor(A, red)
+    sel = TargetSelector("hopper")
+    regions = make_solver_regions()
+
+    def solve(run, b, x0):
+        return pbicgstab_regions(types.SimpleNamespace(run=run), regions, A,
+                                 b, x0, P, tol=0.0, max_iter=3).x
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bs = torch.rand((2, *grid.shape), generator=g, device=cuda)
+    x0 = torch.zeros_like(bs)
+    prog = capture(solve, bs[0], x0[0], name="solve", selector=sel)
+    ex = Executor(UnifiedPolicy(selector=sel))
+    solo = torch.stack([prog.replay(ex, bs[i], x0[i]) for i in range(2)])
+    before = {**SK.LAUNCHES, **FK.LAUNCHES}
+    got = prog.replay_batch(bs, x0, executor=ex, selector=sel)
+    after = {**SK.LAUNCHES, **FK.LAUNCHES}
+    assert min(after[k] - before[k] for k in (
+        "stencil_spmv", "rb_dilu_forward", "rb_dilu_backward", "fused_axpy",
+        "fused_axpbypz")) > 0
+    err = (got - solo).abs().max().item()
+    assert err <= 1e-5 * max(1.0, solo.abs().max().item())

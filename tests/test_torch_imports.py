@@ -12,6 +12,18 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.core.regions import disable_compile
+
+
+@pytest.fixture(autouse=True)
+def _eager():
+    """Regions run eagerly here (``disable_compile``, the counterpart of
+    ``jax.disable_jit()``): compiling every region would cost seconds per
+    test on the CPU.  Compiled executables are tested in
+    tests/test_torch_compile.py."""
+    with disable_compile():
+        yield
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODULES = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,

@@ -30,11 +30,22 @@ from repro_torch.cfd.grid import Grid
 from repro_torch.cfd.simple import (AMUL_LADDER, SimpleConfig, SimpleFoam,
                                     init_state)
 from repro_torch.core.ledger import Ledger
-from repro_torch.core.regions import (DEFAULT_CUTOFF, AdaptivePolicy,
-                                      Executor, HostPolicy, POLICIES,
-                                      SizeRouter, StaticSelector,
-                                      TargetSelector, UnifiedPolicy,
-                                      make_policy, region)
+from repro_torch.core.regions import (DEFAULT_CUTOFF, AdaptivePolicy, Executor,
+                                      HostPolicy, POLICIES, SizeRouter,
+                                      StaticSelector, TargetSelector,
+                                      UnifiedPolicy, make_policy, region,
+                                      disable_compile)
+
+
+@pytest.fixture(autouse=True)
+def _eager():
+    """Regions run eagerly here (``disable_compile``, the counterpart of
+    ``jax.disable_jit()``): compiling every region would cost seconds per
+    test on the CPU.  Compiled executables are tested in
+    tests/test_torch_compile.py."""
+    with disable_compile():
+        yield
+
 
 SHAPE = (8, 8, 8)
 SETTINGS = dict(nu=0.1, inner_max=5, tol_u=0.0, tol_p=0.0)

@@ -26,9 +26,21 @@ from repro_torch.core.pool import BufferRotation, DeviceBufferPool
 from repro_torch.core.program import (AsyncExecutor, In, Lit, Ref,
                                       _flatten_call, capture,
                                       interval_overlap)
-from repro_torch.core.regions import (AdaptivePolicy, DiscretePolicy,
-                                      Executor, HostPolicy, StaticSelector,
-                                      TargetSelector, UnifiedPolicy, region)
+from repro_torch.core.regions import (AdaptivePolicy, DiscretePolicy, Executor,
+                                      HostPolicy, StaticSelector,
+                                      TargetSelector, UnifiedPolicy, region,
+                                      disable_compile)
+
+
+@pytest.fixture(autouse=True)
+def _eager():
+    """Regions run eagerly here (``disable_compile``, the counterpart of
+    ``jax.disable_jit()``): compiling every region would cost seconds per
+    test on the CPU.  Compiled executables are tested in
+    tests/test_torch_compile.py."""
+    with disable_compile():
+        yield
+
 
 N = 1 << 15           # big enough to exceed the pools' 5K-element threshold
 POLICIES = {"unified": UnifiedPolicy, "host": HostPolicy,

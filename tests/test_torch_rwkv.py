@@ -39,6 +39,18 @@ from repro_torch.models.convert import _tensor
 from repro_torch.models.params import ParamSpec, init_params, param_count
 from repro_torch.models.transformer import Ctx
 from repro_torch.core.umem import tree_map
+from repro_torch.core.regions import disable_compile
+
+
+@pytest.fixture(autouse=True)
+def _eager():
+    """Regions run eagerly here (``disable_compile``, the counterpart of
+    ``jax.disable_jit()``): compiling every region would cost seconds per
+    test on the CPU.  Compiled executables are tested in
+    tests/test_torch_compile.py."""
+    with disable_compile():
+        yield
+
 
 MODEL = dict(name="t", family="ssm", n_layers=1, d_model=32, n_heads=2,
              n_kv_heads=2, d_ff=48, vocab=64, head_dim=16,

@@ -38,6 +38,18 @@ from repro_torch.launch import serve as SV
 from repro_torch.launch.policy import lm_policy
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import cache_from_jax, params_from_jax
+from repro_torch.core.regions import disable_compile
+
+
+@pytest.fixture(autouse=True)
+def _eager():
+    """Regions run eagerly here (``disable_compile``, the counterpart of
+    ``jax.disable_jit()``): compiling every region would cost seconds per
+    test on the CPU.  Compiled executables are tested in
+    tests/test_torch_compile.py."""
+    with disable_compile():
+        yield
+
 
 B, PROMPT, GEN = 2, 32, 8
 
@@ -233,6 +245,33 @@ def test_cli_runs_on_cpu(capsys):
     assert seq.shape == (4, 4) and seq.dtype == torch.int32
     assert "[serve] rwkv6-7b (reduced) [unified, ref, cpu]" in out
     assert '"impl_counts"' in out
+
+
+def test_replay_request_groups_returns_every_groups_solo_replay():
+    """``replay_request_groups`` (the ``--replay-batch`` path) replays each
+    group alone as well: in f32 the batched tokens equal every group's solo
+    replay, and each group starts from its own prefill's token."""
+    import types
+    from repro_torch.core.ledger import Ledger
+    from repro_torch.core.regions import UnifiedPolicy
+    cfg = dataclasses.replace(reduced(get_config("rwkv6-7b")),
+                              param_dtype="float32", compute_dtype="float32")
+    params = T.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    ex = Executor(UnifiedPolicy(), Ledger("groups"))
+    regions = SV.make_serve_regions(cfg, params, ledger=ex.ledger)
+    prefill, _, make_cache = SV.build_server(cfg, 2, "cpu")
+    prompts = torch.randint(0, cfg.vocab, (2, 8),
+                            generator=torch.Generator().manual_seed(1),
+                            dtype=torch.int32)
+    logits, cache = prefill(params, {"tokens": prompts}, make_cache())
+    prog = SV.capture_decode_program(regions, 8, 3, SV.greedy(logits), cache)
+    args = types.SimpleNamespace(seed=0, batch=2, prompt_len=8, gen=3)
+    seqs, solo, dt = SV.replay_request_groups(cfg, ex, prog, prefill,
+                                              make_cache, params, args, 2,
+                                              "cpu")
+    assert seqs.shape == solo.shape == (2, 2, 3) and dt > 0
+    assert torch.equal(seqs, solo)
+    assert not torch.equal(solo[0], solo[1])
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "llama3.2-3b",

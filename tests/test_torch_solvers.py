@@ -27,8 +27,20 @@ from repro_torch.cfd.precond import rb_dilu_factor
 from repro_torch.cfd.solvers import (make_solver_regions, pbicgstab_fused,
                                      pbicgstab_regions, solve)
 from repro_torch.core.ledger import Ledger
-from repro_torch.core.regions import Executor, TargetSelector, UnifiedPolicy
+from repro_torch.core.regions import (Executor, TargetSelector, UnifiedPolicy,
+                                      disable_compile)
 from repro_torch.kernels.stencil_spmv import ref as stencil_ref
+
+
+@pytest.fixture(autouse=True)
+def _eager():
+    """Regions run eagerly here (``disable_compile``, the counterpart of
+    ``jax.disable_jit()``): compiling every region would cost seconds per
+    test on the CPU.  Compiled executables are tested in
+    tests/test_torch_compile.py."""
+    with disable_compile():
+        yield
+
 
 TOL = dict(rtol=3e-4, atol=1e-4)
 

@@ -17,8 +17,19 @@ from repro.cfd.simple import (SimpleConfig as JSimpleConfig,
                               init_state as j_init_state)
 from repro_torch.cfd.grid import Grid
 from repro_torch.cfd.simple import SimpleConfig, SimpleFoam, init_state
-from repro_torch.core.regions import (DiscretePolicy, Executor,
-                                      StaticSelector, UnifiedPolicy)
+from repro_torch.core.regions import (DiscretePolicy, Executor, StaticSelector,
+                                      UnifiedPolicy, disable_compile)
+
+
+@pytest.fixture(autouse=True)
+def _eager():
+    """Regions run eagerly here (``disable_compile``, the counterpart of
+    ``jax.disable_jit()``): compiling every region would cost seconds per
+    test on the CPU.  Compiled executables are tested in
+    tests/test_torch_compile.py."""
+    with disable_compile():
+        yield
+
 
 SHAPE = (8, 8, 8)
 SETTINGS = dict(nu=0.1, inner_max=5, tol_u=0.0, tol_p=0.0)
