@@ -34,9 +34,17 @@ Run from the root of a checkout.  Phases, each printing its own lines:
 7. capture and replay (``[async]``, Fig 6b): one SIMPLE step captured on
    the card and replayed under the discrete policy synchronously and with
    lookahead copies on a side stream, bit for bit equal, and under the
-   unified policy, held against the eager step;
-8. the serve path: ``rwkv6-7b`` at full width and depth (random weights
-   from ``--seed``), batch 4, prompt 1024, 32 greedy tokens, through the
+   unified policy, held against the eager step; then ``[oversub]``
+   (``fig_oversub``'s CFD leg): the same step replayed under discrete and
+   adaptive policies whose ``MemoryBudget`` makes the state 1, 2 and 4
+   times oversubscribed (chunked staging), and under a budgeted async
+   replay at 4, each equal bit for bit to its unbudgeted replay, with the
+   budget's high water beside the card's peak; and one region whose
+   ``DEVICE`` hints a ``BudgetedPlacer`` demotes, its operand migrated in
+   for the call and booked as staging;
+8. the serve path: ``rwkv6-7b`` at full width and 8 of its 32 layers
+   (random weights from ``--seed``), batch 4, prompt 1024, 32 greedy
+   tokens, through the
    captured prefill and decode programs under the unified policy with the
    ``hopper`` variants, compiled (each layer kind compiled once, a custom
    op in the step's graph: ``transformer.LayerOp``); the same eagerly
@@ -46,15 +54,24 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    compiled decode step's logits against the same functions run eagerly,
    the ``hopper`` prefill against the ``ref`` prefill, the discrete policy
    at 8 tokens, and the ``hopper`` prefill against the ``ref`` prefill
-   again with the weights widened to f32 (these two held eagerly, as
-   before regions were compiled);
+   again at all 32 layers with the weights widened to f32 (these two held
+   eagerly, as before regions were compiled);
 9. ``[batch]``: ``RegionProgram.replay_batch`` of the decode program
-   (4 tokens) of ``rwkv6-7b`` at full width and depth over 2 request
+   (4 tokens) of the served ``rwkv6-7b`` (8 layers) over 2 request
    groups of 4, against each group's solo replay (the first decoded token
    equal in every row), and of a captured PBiCGStab solve at 200^3 over 2
    right-hand sides, whose vmap rules launch K1-K4, against the solo
    replays;
-10. a ``kernels`` JSON line (kernels of both paths) and a ``port_status``
+10. ``[serve-attn]``: ``tinyllama-1.1b`` at full width and depth (22
+   layers, random bf16 weights from ``--seed``), batch 4, prompt 1024, 32
+   greedy tokens through the captured programs, compiled (each attention
+   layer kind compiled once), and eagerly beside it; the tokens against
+   the uncaptured path; the compiled prefill (logits, every layer's k and
+   v) and one decode step against the same functions run eagerly, in bf16
+   and with the weights widened to f32; then ``llama3.2-3b`` at full width
+   and 4 of its 28 layers, 8 tokens, compiled, its tokens against the
+   uncaptured path;
+11. a ``kernels`` JSON line (kernels of both paths) and a ``port_status``
    JSON line (every TPU kernel of the reference and whether it is ported).
 
 Each path's kernel launches are counted from 0 just before it and read
@@ -107,7 +124,29 @@ SCAN_ON_MODEL_TOL = 1e-4
 # f32 rounding of the decays' running sums amplified by 32 layers
 # (2e-5 of max|S| and of max|logit| at d_model=256 on a CPU)
 F32_PREFILL_TOL = 1e-4
-SERVE = dict(batch=4, prompt_len=1024, gen=32, gen_discrete=8)
+# rwkv6-7b serve (and [batch]) at 8 of its 32 layers: each served model
+# compiles its steps several times (captured regions, the uncaptured path,
+# the batched composite), and a step's graph grows by one layer op a layer
+SERVE = dict(batch=4, prompt_len=1024, gen=32, gen_discrete=8, layers=8)
+# tinyllama-1.1b at all 22 layers; llama3.2-3b at 4 of its 28
+SERVE_ATTN = dict(batch=4, prompt_len=1024, gen=32, llama_gen=8,
+                  llama_layers=4)
+# compiled against eager tinyllama prefill and decode steps, relative to
+# max(1, max|x|).  In f32 (TF32 off) each compiled layer, fed the eager
+# layer's input, must stay within ATTN_LAYER_TOL of it: the two differ in
+# the order of f32 sums and Triton's division, so the compiled layer
+# computes the same function.  End to end the model amplifies rounding: at
+# this init the attention logits reach ~100, so a rounding-level change of
+# q or k moves the softmax weights ~30-100 times as much, layer after
+# layer, and the deepest layers' k/v differ most (on an H100 80GB HBM3 at
+# 700 W: f32 layer 0 3.8e-7, 22 layers 2.6e-4; bf16 layer 0 5.0e-3, 22
+# layers 0.18; logits 1.8e-4 and 0.12).  The whole-model envelopes bound
+# that amplification.
+# (A bf16 layer alone reads a few ulps of 2^-8 of its largest output, up
+# to 0.041 at layer 0, whose MLP output reaches ~1e3: printed, not held.)
+ATTN_LAYER_TOL = 1e-4
+ATTN_MODEL_TOL = {"float32": dict(logits=1e-3, kv=1e-3),
+                  "bfloat16": dict(logits=0.2, kv=0.3)}
 FIELD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
              torch.bfloat16: dict(rtol=2e-2, atol=1e-2)}
 STEP_ENVELOPE = 1e-5          # |err| <= 1e-5 * max(1, max|field|)
@@ -123,7 +162,9 @@ CFD_KERNELS = ("stencil_spmv", "rb_dilu_forward", "rb_dilu_backward",
 PLAIN = collections.Counter()
 #: region variants run eagerly on the card outside ``disable_compile``
 EAGER = collections.Counter()
-#: every Region made in this run (for the recompile check)
+#: name and compile record of every Region made in this run (for the
+#: recompile check; the Region itself, whose function may close over a
+#: model's weights, is not kept)
 REGIONS = []
 #: decode program length of the ``[batch]`` phase (its composite unrolls
 #: every step)
@@ -288,7 +329,7 @@ def count_plain_calls(Region, ref_modules, compile_disabled):
     package's plain function and of the ``ref`` variant of a region that
     has a ``hopper`` variant (what a ``hopper`` call falls back to), eager
     or traced; count in ``EAGER`` every region variant run eagerly on the
-    card outside ``disable_compile``; keep every Region in ``REGIONS``."""
+    card outside ``disable_compile``; keep every Region's compile record in ``REGIONS``."""
     for mod in ref_modules:
         for name in [n for n in dir(mod) if not n.startswith("_")]:
             fn = getattr(mod, name)
@@ -323,7 +364,8 @@ def count_plain_calls(Region, ref_modules, compile_disabled):
 
     def kept(self):
         post_init(self)
-        REGIONS.append(self)
+        REGIONS.append(types.SimpleNamespace(name=self.name,
+                                             compile_stats=self.compile_stats))
     Region.__post_init__ = kept
 
 
@@ -426,13 +468,16 @@ def main(argv=None):
                                         SimpleState, init_state)
     from repro_torch.cfd.solvers import (make_solver_regions,
                                          pbicgstab_regions, solve)
+    from repro_torch.core.oversub import (BudgetedPlacer, BudgetStats,
+                                          MemoryBudget, workload_bytes)
     from repro_torch.core.program import AsyncExecutor
     from repro_torch.core.program import capture
-    from repro_torch.core.regions import (DiscretePolicy, Executor, Region,
-                                          StaticSelector, TargetSelector,
-                                          UnifiedPolicy, compile_disabled,
-                                          compile_region_fn, disable_compile,
-                                          make_policy)
+    from repro_torch.core.regions import (AdaptivePolicy, DiscretePolicy,
+                                          Executor, Region, StaticSelector,
+                                          TargetSelector, UnifiedPolicy,
+                                          compile_disabled, compile_region_fn,
+                                          disable_compile, make_policy,
+                                          region)
     from repro_torch.kernels import build
     from repro_torch.configs.registry import get_config
     from repro_torch.core.ledger import Ledger
@@ -443,6 +488,7 @@ def main(argv=None):
     from repro_torch.kernels.stencil_spmv import kernel as SK, ref as SR
     from repro_torch.launch import serve as SV
     from repro_torch.models import transformer as T
+    from repro_torch.models.layers import embed
     from repro_torch.models.params import param_count
     from repro_torch.train import step as train_step
     count_plain_calls(Region, (SR, FR, RR), compile_disabled)
@@ -879,6 +925,7 @@ def main(argv=None):
           f"{json.dumps(res['discrete']['policy'].stager.host_pool.stats.as_dict())}; "
           f"launches {json.dumps(res['discrete']['launches'])}")
     dev_app.ex = Executor(UnifiedPolicy(selector=sel), dev_app.ledger)
+    cutoff = res["adaptive"]["policy"].cutoff       # for [oversub]
     del res, st_host, s0, s1, a, policy, s_e
 
     stamp("policies")
@@ -1001,12 +1048,138 @@ def main(argv=None):
                     raise AssertionError(f"async replay differs from sync "
                                          f"in {f}")
     print("[async] sync and async replays equal bit for bit")
-    del a, dev_app, prog, eager, replayed, st_pin, out, ex, pol, s2, s_a, s_s
+    unbudgeted = {"discrete": out["sync"][0][0]}
+    del dev_app, eager, replayed, out, ex, pol, s2, s_a, s_s
 
     stamp("async")
 
-    # -- 8. serve rwkv6-7b at full width and depth ---------------------
+    # -- 7b. oversubscription: the captured step under a device budget --
+    # fig_oversub's CFD leg at 200^3: the [async] step replayed under
+    # discrete and adaptive (the [policies] cutoff) policies whose budget
+    # makes the state 1, 2 and 4 times oversubscribed; a budget is logical
+    # (nothing caps what CUDA allocates), so the card's own peak is read
+    # beside the budget's high water
+    fp = workload_bytes(st_pin)
+    unbudgeted["adaptive"], _ = a.replay_steps(
+        prog, st, 2, Executor(AdaptivePolicy(cutoff, selector=sel)))
+
+    def oversub_policy(mode, budget=None):
+        if mode == "discrete":
+            return DiscretePolicy(selector=sel, budget=budget)
+        return AdaptivePolicy(cutoff, selector=sel, budget=budget, device=dev)
+
+    def oversub_run(mode, ratio, make_ex=Executor):
+        """One warm-up step (pools), then 2 timed steps from the pinned
+        state under a fresh budget of ``fp / ratio``: (state, FOM, budget,
+        report, launches, card peak above the run's start, card peak)."""
+        budget = MemoryBudget.for_ratio(fp, ratio, name="cfd")
+        ex = make_ex(oversub_policy(mode, budget))
+        a.replay_steps(prog, st_pin, 1, ex)
+        ex.ledger.reset_timings()
+        budget.stats = BudgetStats()          # nothing is charged between
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        reset_plain()
+        s_b, fom_b = a.replay_steps(prog, st_pin, 2, ex)
+        check_plain(f"[oversub] {mode} ratio {ratio:g}")
+        peak = torch.cuda.max_memory_allocated()
+        return s_b, fom_b, budget, ex.report(), launches(), peak - base, peak
+
+    oversub = {}
+    for ratio in (1.0, 2.0, 4.0):
+        for mode in ("discrete", "adaptive"):
+            s_b, fom_b, budget, rep_b, cnt, above, peak = oversub_run(
+                mode, ratio)
+            bs = budget.stats
+            print(f"[oversub] {mode} ratio {ratio:g} (limit "
+                  f"{budget.limit_bytes / 1e6:.1f} MB of {fp / 1e6:.1f} MB, "
+                  f"chunk {budget.staging_chunk_bytes() / 1e6:.1f} MB): FOM "
+                  f"{fom_b:.4f} s/step; staging_fraction "
+                  f"{rep_b['staging_fraction']:.4f}; staging_chunks "
+                  f"{bs.staging_chunks}; pressure_events "
+                  f"{bs.pressure_events}; budget high water "
+                  f"{bs.high_water_bytes / 1e6:.1f} MB; "
+                  f"torch.cuda.max_memory_allocated {peak / 1e6:.1f} MB "
+                  f"({above / 1e6:.1f} MB above the run's start); launches "
+                  f"{json.dumps(cnt)}")
+            for f in "uvwp":     # host pages against card fields (adaptive)
+                if not torch.equal(getattr(s_b, f).cpu(),
+                                   getattr(unbudgeted[mode], f).cpu()):
+                    raise AssertionError(f"{mode} replay at ratio {ratio:g} "
+                                         f"differs from the unbudgeted one "
+                                         f"in {f}")
+            missing = [k for k in CFD_KERNELS if cnt[k] <= 0]
+            if missing:
+                raise AssertionError(f"[oversub] {mode} ratio {ratio:g}: "
+                                     f"kernels {missing} never launched")
+            if ratio == 4.0 and not (bs.staging_chunks > 0
+                                     and bs.pressure_events > 0):
+                raise AssertionError(f"[oversub] {mode} ratio 4: no chunks or "
+                                     f"no pressure: {bs.as_dict()}")
+            oversub[(mode, ratio)] = s_b
+    s_b, fom_b, budget, rep_b, cnt, above, peak = oversub_run(
+        "discrete", 4.0, AsyncExecutor)
+    for f in "uvwp":
+        if not torch.equal(getattr(s_b, f),
+                           getattr(oversub[("discrete", 4.0)], f)):
+            raise AssertionError(f"async budgeted replay differs from the "
+                                 f"sync one in {f}")
+    print(f"[oversub] discrete async ratio 4: FOM {fom_b:.4f} s/step; "
+          f"staging_fraction {rep_b['staging_fraction']:.4f}; overlap_fraction"
+          f" {rep_b['overlap_fraction']:.4f}; staging_chunks "
+          f"{budget.stats.staging_chunks}; pressure_events "
+          f"{budget.stats.pressure_events}; budget high water "
+          f"{budget.stats.high_water_bytes / 1e6:.1f} MB; "
+          f"torch.cuda.max_memory_allocated {peak / 1e6:.1f} MB "
+          f"({above / 1e6:.1f} MB above the run's start); equal bit for bit "
+          f"to the sync budgeted replay and to the unbudgeted one")
+    print("[oversub] every budgeted replay (ratios 1, 2, 4; discrete and "
+          "adaptive; sync and async) equals its unbudgeted replay bit for bit")
+
+    # a region whose two grid operands carry DEVICE hints, under a budget
+    # that admits the field and not the 6-field stack: the stack is demoted
+    # to pinned host memory and migrates in for the call, booked as staging
+    hinted_ledger = Ledger("hinted")
+
+    @region("hinted_weighted_sum", ledger=hinted_ledger,
+            placement={0: MemSpace.DEVICE, 1: MemSpace.DEVICE})
+    def hinted(d, off):
+        return d * off.sum(0)
+    d_h, off_h = rand(N, N, N), rand(6, N, N, N)
+    want_h = Executor(UnifiedPolicy(), Ledger("unhinted")).run(hinted, d_h,
+                                                              off_h)
+    budget = MemoryBudget(2 * d_h.numel() * d_h.element_size(), name="hint")
+    ex = Executor(UnifiedPolicy(placer=BudgetedPlacer(budget=budget,
+                                                      device=dev)),
+                  Ledger("hinted_run"))
+    reset_plain()
+    got_h = ex.run(hinted, d_h, off_h)
+    check_plain("[oversub] BudgetedPlacer")
+    row = ex.ledger.regions["hinted_weighted_sum"]
+    print(f"[oversub] BudgetedPlacer: DEVICE hints on a {N}^3 field "
+          f"({d_h.numel() * 4 / 1e6:.1f} MB) and its 6-field stack "
+          f"({off_h.numel() * 4 / 1e6:.1f} MB) under a "
+          f"{budget.limit_bytes / 1e6:.1f} MB budget: admitted "
+          f"{budget.stats.admitted}, denied {budget.stats.denials}; the "
+          f"demoted stack migrated in for the call: staging_bytes "
+          f"{row.staging_bytes / 1e6:.1f} MB in {row.staging_s * 1e3:.2f} ms;"
+          f" device_calls {row.device_calls}; result equal to the unhinted "
+          f"run: {torch.equal(got_h, want_h)}")
+    if not (torch.equal(got_h, want_h) and got_h.is_cuda
+            and row.staging_bytes == off_h.numel() * off_h.element_size()
+            and row.device_calls == 1 and budget.stats.denials == 1):
+        raise AssertionError("the demoted operand was not migrated in, or "
+                             "the result changed")
+    del a, prog, st_pin, unbudgeted, oversub, s_b, budget, ex, d_h, off_h, \
+        want_h, got_h, hinted
+
+    stamp("oversub")
+
+    # -- 8. serve rwkv6-7b at full width -------------------------------
     del app, outs, st
+    scfg = dataclasses.replace(scfg, n_layers=SERVE["layers"])
     SG, SGD = SERVE["gen"], SERVE["gen_discrete"]
     gs = torch.Generator(device=dev).manual_seed(args.seed)
     before_serve = torch.cuda.memory_allocated()
@@ -1319,6 +1492,279 @@ def main(argv=None):
         raise AssertionError(f"replay_batch did not launch K1-K4: {cnt_b}")
     del A_b, P_b, solver, rhs, x0s, prog_s, ex_s, solo_s, got_s
 
+    # all 32 layers, random bf16 weights from --seed widened to f32, with
+    # f32 activations: hopper vs ref prefill, so that only f32 rounding
+    # separates them (eagerly, as before compiling: Inductor's fusions would
+    # add their own rounding); no compile, so the depth costs little here
+    del params
+    cfg32 = dataclasses.replace(get_config("rwkv6-7b"),
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), T.init(
+        torch.Generator(device=dev).manual_seed(args.seed),
+        get_config("rwkv6-7b"), dev))
+    pre32 = {}
+    with disable_compile():
+        for impl in ("hopper", None):
+            step, _, mk = SV.build_server(cfg32, SB, dev, rwkv_impl=impl)
+            t0 = time.perf_counter()
+            pre32[impl] = (*step(params32, batch, mk()),)
+            torch.cuda.synchronize()
+            pre32[impl] += (time.perf_counter() - t0,)
+    (lh, ch, th), (lr, cr, tr) = pre32["hopper"], pre32[None]
+    s_rel, l_rel = rel_errs(lh, ch, lr, cr)
+    print(f"[serve] f32 weights and activations, {cfg32.n_layers} layers: "
+          f"hopper prefill "
+          f"{th * 1e3:.1f} ms vs ref {tr * 1e3:.1f} ms; max |dS| / max|S| "
+          f"over layers {max(s_rel):.3e} (layer 0: {s_rel[0]:.3e}), max "
+          f"|dlogit| / max|logit| {l_rel:.3e} (limit {F32_PREFILL_TOL})")
+    if not (max(s_rel) <= F32_PREFILL_TOL and l_rel <= F32_PREFILL_TOL):
+        raise AssertionError("f32 hopper prefill leaves the ref envelope")
+    del params32, pre32, lh, ch, lr, cr
+
+    stamp("batch")
+
+    # -- 10. serve attention: tinyllama-1.1b, llama3.2-3b ---------------
+    AB, AP, AG = SERVE_ATTN["batch"], SERVE_ATTN["prompt_len"], \
+        SERVE_ATTN["gen"]
+
+    def attn_model(arch, n_layers=None):
+        """(cfg, random params from --seed on the card, prompts)."""
+        cfg_a = get_config(arch)
+        if n_layers is not None:
+            cfg_a = dataclasses.replace(cfg_a, n_layers=n_layers)
+        ga = torch.Generator(device=dev).manual_seed(args.seed)
+        t0 = time.perf_counter()
+        p_a = T.init(ga, cfg_a, dev)
+        torch.cuda.synchronize()
+        t_init_a = time.perf_counter() - t0
+        prompts_a = torch.randint(0, cfg_a.vocab, (AB, AP), generator=ga,
+                                  device=dev, dtype=torch.int32)
+        n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(p_a))
+        print(f"[serve-attn] {arch}: {cfg_a.n_layers} layers, d_model "
+              f"{cfg_a.d_model}, {cfg_a.n_heads} query / {cfg_a.n_kv_heads} "
+              f"kv heads of {cfg_a.hd}, d_ff {cfg_a.d_ff}, vocab "
+              f"{cfg_a.vocab}, rope_theta {cfg_a.rope_theta:g}, tied "
+              f"embeddings {cfg_a.tie_embeddings}, {cfg_a.compute_dtype}; "
+              f"{param_count(T.param_specs(cfg_a))} params, "
+              f"{n_bytes / 1e9:.2f} GB on the card, random init in "
+              f"{t_init_a:.1f} s")
+        return cfg_a, p_a, {"tokens": prompts_a}
+
+    def attn_serve(cfg_a, p_a, batch_a, gen_n):
+        """Both programs captured under unified/hopper and replayed once as
+        a warm-up, then one timed request batch: (tokens [B, gen] on the
+        host, prefill s, decode s, peak bytes, regions, compiles before
+        the timed run)."""
+        slots = AP + gen_n
+        ex_a = Executor(UnifiedPolicy(selector=StaticSelector("hopper")),
+                        Ledger("serve_attn"))
+        n0 = len(REGIONS)
+        regions_a = SV.make_serve_regions(cfg_a, p_a, ledger=ex_a.ledger)
+        pprog_a = SV.capture_prefill_program(
+            regions_a, batch_a, T.init_cache(cfg_a, AB, dev, slots),
+            selector=ex_a.policy.selector)
+        tok_a, cache_a = pprog_a.replay(ex_a, batch_a,
+                                        T.init_cache(cfg_a, AB, dev, slots))
+        dprog_a = SV.capture_decode_program(
+            regions_a, AP, gen_n, *tree_place((tok_a, cache_a),
+                                              MemSpace.DEVICE, dev),
+            selector=ex_a.policy.selector)
+        dprog_a.replay(ex_a, tok_a, cache_a)
+        del tok_a, cache_a
+        warm_a = compiles_of(REGIONS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tok_a, cache_a = pprog_a.replay(ex_a, batch_a,
+                                        T.init_cache(cfg_a, AB, dev, slots))
+        t1 = time.perf_counter()
+        toks_a = dprog_a.replay(ex_a, tok_a, cache_a)
+        t2 = time.perf_counter()
+        seq_a = torch.stack([t.cpu() for t in toks_a], 1)
+        return (seq_a, t1 - t0, t2 - t1, torch.cuda.max_memory_allocated(),
+                REGIONS[n0:], warm_a)
+
+    def attn_oracle(cfg_a, p_a, batch_a, gen_n, seq_a):
+        """The uncaptured path, compiled: its tokens must equal the
+        replay's.  Returns its (prefill, make_cache)."""
+        pre_a, dec_a, mk_a = SV.build_server(cfg_a, AB, dev,
+                                             max_len=AP + gen_n)
+        lg, ca = pre_a(p_a, batch_a, mk_a())
+        toks_o, _ = SV.decode_stream(dec_a, p_a, SV.greedy(lg), ca, AP,
+                                     gen_n)
+        if not torch.equal(seq_a, torch.stack([t.cpu() for t in toks_o], 1)):
+            raise AssertionError(f"{cfg_a.name}: replayed tokens differ from "
+                                 f"the uncaptured path's")
+        return pre_a, mk_a
+
+    def attn_rel(got, want):
+        """max |got - want| / max(1, max |want|)."""
+        got, want = got.float(), want.float()
+        return ((got - want).abs().max()
+                / max(1.0, want.abs().max().item())).item()
+
+    def attn_compiled_vs_eager(cfg_a, p_a, batch_a, pre_a, mk_a, tol):
+        """The compiled prefill (logits, every layer's k and v) and one
+        compiled decode step's logits against the same functions run
+        eagerly on the same inputs, each as max |d| / max(1, max|x|);
+        the logits within ``tol["logits"]``, k and v within
+        ``tol["kv"]``."""
+        lc, cc = pre_a(p_a, batch_a, mk_a())
+        dec_logits = compile_region_fn(train_step.make_decode_step(cfg_a),
+                                       f"decode_logits_{cfg_a.name}")
+        tok_c = SV.greedy(lc)
+        ldc, _ = dec_logits(p_a, tok_c, cc, SV.position(AP))
+        with disable_compile():
+            pre_e, _, mk_e = SV.build_server(cfg_a, AB, dev,
+                                             max_len=AP + AG)
+            le, ce = pre_e(p_a, batch_a, mk_e())
+            lde, _ = train_step.make_decode_step(cfg_a)(p_a, tok_c, cc,
+                                                       SV.position(AP))
+        kv = [max(attn_rel(a[k], b[k]) for k in "kv")
+              for a, b in zip(cc, ce)]
+        kv0 = {k: attn_rel(cc[0][k], ce[0][k]) for k in "kv"}
+        errs = dict(prefill_logits=attn_rel(lc, le), kv=max(kv),
+                    decode_logits=attn_rel(ldc, lde))
+        for what, lg in (("compiled prefill", lc), ("eager prefill", le),
+                         ("compiled decode", ldc), ("eager decode", lde)):
+            if not torch.isfinite(lg).all():
+                raise AssertionError(f"{cfg_a.name} {what} logits are not "
+                                     f"finite")
+        agree = (SV.greedy(lc) == SV.greedy(le)).float().mean().item()
+        print(f"[serve-attn] {cfg_a.name} {cfg_a.compute_dtype} compiled vs "
+              f"eager, same inputs (max |d| / max(1, max|x|)): prefill "
+              f"logits {errs['prefill_logits']:.3e}, k/v over layers "
+              f"{errs['kv']:.3e} (by layer: "
+              + ", ".join(f"{e:.1e}" for e in kv) + f"; layer 0 k "
+              f"{kv0['k']:.1e}, v {kv0['v']:.1e}), one decode step's "
+              f"logits {errs['decode_logits']:.3e} (limits {tol}); "
+              f"first-token agreement {agree:.2f}")
+        return errs
+
+    def attn_layers_alone(cfg_a, p_a, batch_a, mk_a):
+        """Each compiled prefill layer (its layer op, compiled) against the
+        same layer run eagerly, both fed the eager run's input to that
+        layer: per layer, the worst max |d| / max(1, max|x|) over the
+        layer's output and its k, v."""
+        op = T.layer_fns(cfg_a, SV.prefill_ctx())[("attn", "dense")]
+        x = embed(p_a["embed"], batch_a["tokens"], cfg_a)
+        worst = []
+        # grad mode off, as inside a compiled step (the layer's guards)
+        with torch.no_grad():
+            for layer, c in zip(p_a["layers"], mk_a()):
+                args = (T._leaves(layer), x, [c[k] for k in op._cache_keys],
+                        None)
+                got = op.op(*args)
+                with disable_compile():
+                    want = op.op(*args)
+                worst.append(max(attn_rel(g, w) for g, w in zip(got, want)))
+                x = want[0]
+        return worst
+
+    def attn_envelope(cfg_a, p_a, batch_a, mk_a, errs):
+        """Hold one dtype's whole-model errors and each layer alone to
+        their envelopes."""
+        dt = cfg_a.compute_dtype
+        alone = attn_layers_alone(cfg_a, p_a, batch_a, mk_a)
+        tol = ATTN_MODEL_TOL[dt]
+        tol_layer = ATTN_LAYER_TOL if dt == "float32" else "not held"
+        print(f"[serve-attn] {cfg_a.name} {dt}: each compiled prefill layer "
+              f"against the eager layer on the eager layer's input, max |d| "
+              f"/ max(1, max|x|): {max(alone):.3e} (by layer: "
+              + ", ".join(f"{e:.1e}" for e in alone) + f"; limit "
+              f"{tol_layer}); whole model limits {tol}")
+        if dt == "float32" and not max(alone) <= tol_layer:
+            raise AssertionError(f"{cfg_a.name} {dt}: a compiled layer leaves "
+                                 f"the eager layer's envelope: {alone}")
+        if not (errs["prefill_logits"] <= tol["logits"]
+                and errs["decode_logits"] <= tol["logits"]
+                and errs["kv"] <= tol["kv"]):
+            raise AssertionError(f"{cfg_a.name} {dt}: the compiled steps leave"
+                                 f" the eager steps' envelope {tol}: {errs}")
+
+    def attn_ops_compiled_once():
+        ops = [op for op in T.LAYER_OPS.values()
+               if op.label.startswith("layer_attn") and op.stats.calls]
+        if not ops or any(op.stats.compiles != 1 for op in ops):
+            raise AssertionError("an attention layer kind compiled more than "
+                                 "once: " + "; ".join(
+                                     f"{op.label} {op.stats.compiles}"
+                                     for op in ops))
+
+    # tinyllama-1.1b at full width and depth, compiled, eagerly beside it
+    acfg, aparams, abatch = attn_model("tinyllama-1.1b")
+    reset_plain()
+    seq_a, ta_pre, ta_dec, peak_a, attn_regions, warm_a = attn_serve(
+        acfg, aparams, abatch, AG)
+    check_plain("[serve-attn] capture and replay")
+    if compiles_of(REGIONS) != warm_a:
+        raise AssertionError("[serve-attn]: a region recompiled after its "
+                             "warm-up")
+    attn_ops_compiled_once()
+    print(f"[compile] [serve-attn] tinyllama-1.1b, per region: first call "
+          f"(trace, compile, run) and graphs kept: "
+          + compile_rows(attn_regions) + "; per layer kind: " + "; ".join(
+              f"{op.label} {op.stats.first_call_s:.2f} s "
+              f"({op.stats.compiles} compiled)" for op in T.LAYER_OPS.values()
+              if op.label.startswith("layer_attn") and op.stats.calls))
+    print(f"[serve-attn] tinyllama-1.1b unified {AB}x{AP} prompt, {AG} "
+          f"tokens, compiled: prefill {ta_pre * 1e3:.1f} ms "
+          f"({AB * AP / ta_pre:.0f} prompt tok/s); decode {AG - 1} steps in "
+          f"{ta_dec * 1e3:.1f} ms ({AB * (AG - 1) / ta_dec:.1f} tok/s, "
+          f"{ta_dec / (AG - 1) * 1e3:.2f} ms/step); peak device memory "
+          f"{peak_a / 1e9:.2f} GB")
+    with disable_compile():
+        seq_ae, tae_pre, tae_dec, peak_ae, _, _ = attn_serve(
+            acfg, aparams, abatch, AG)
+    print(f"[serve-attn] tinyllama-1.1b eager: prefill {tae_pre * 1e3:.1f} "
+          f"ms; decode {AG - 1} steps in {tae_dec * 1e3:.1f} ms "
+          f"({tae_dec / (AG - 1) * 1e3:.2f} ms/step); peak device memory "
+          f"{peak_ae / 1e9:.2f} GB; tokens agree with the compiled run's in "
+          f"{(seq_ae == seq_a).float().mean().item():.3f} of places, first "
+          f"differing step of each row {first_diff(seq_ae, seq_a)}")
+    reset_plain()
+    pre_a, mk_a = attn_oracle(acfg, aparams, abatch, AG, seq_a)
+    print(f"[serve-attn] tinyllama-1.1b uncaptured path, compiled: tokens "
+          f"equal to the replay's; [compile] prefill "
+          f"{pre_a.stats.first_call_s:.2f} s")
+    errs_bf16 = attn_compiled_vs_eager(acfg, aparams, abatch, pre_a, mk_a,
+                                       ATTN_MODEL_TOL["bfloat16"])
+    attn_envelope(acfg, aparams, abatch, mk_a, errs_bf16)
+    check_plain("[serve-attn] tinyllama-1.1b")
+    acfg32 = dataclasses.replace(acfg, param_dtype="float32",
+                                 compute_dtype="float32")
+    aparams32 = tree_map(lambda t: t.float(), aparams)
+    del aparams, pre_a, mk_a
+    pre32, _, mk32 = SV.build_server(acfg32, AB, dev, max_len=AP + AG)
+    errs_f32 = attn_compiled_vs_eager(acfg32, aparams32, abatch, pre32, mk32,
+                                      ATTN_MODEL_TOL["float32"])
+    attn_envelope(acfg32, aparams32, abatch, mk32, errs_f32)
+    del aparams32, pre32, mk32
+
+    # llama3.2-3b at full width (tied embeddings, rope_theta 500000)
+    lcfg, lparams, lbatch = attn_model("llama3.2-3b",
+                                       SERVE_ATTN["llama_layers"])
+    reset_plain()
+    seq_l, tl_pre, tl_dec, peak_l, _, warm_l = attn_serve(
+        lcfg, lparams, lbatch, SERVE_ATTN["llama_gen"])
+    if compiles_of(REGIONS) != warm_l:
+        raise AssertionError("[serve-attn] llama3.2-3b: a region recompiled "
+                             "after its warm-up")
+    attn_oracle(lcfg, lparams, lbatch, SERVE_ATTN["llama_gen"], seq_l)
+    check_plain("[serve-attn] llama3.2-3b")
+    attn_ops_compiled_once()
+    print(f"[serve-attn] llama3.2-3b unified {AB}x{AP} prompt, "
+          f"{SERVE_ATTN['llama_gen']} tokens, compiled: prefill "
+          f"{tl_pre * 1e3:.1f} ms; decode {SERVE_ATTN['llama_gen'] - 1} steps "
+          f"in {tl_dec * 1e3:.1f} ms "
+          f"({tl_dec / (SERVE_ATTN['llama_gen'] - 1) * 1e3:.2f} ms/step); "
+          f"peak device memory {peak_l / 1e9:.2f} GB; tokens equal to the "
+          f"uncaptured path's; each attention layer kind compiled once")
+    del lparams
+
+    stamp("serve-attn")
+
     # every compiled executable of the run: at most two recompiles
     worst = max([(st.recompiles, r.name) for r in REGIONS
                  for st in r.compile_stats.values()]
@@ -1332,35 +1778,8 @@ def main(argv=None):
     if worst[0] > 2:
         raise AssertionError(f"region {worst[1]} recompiled {worst[0]} times")
 
-    # the same weights widened to f32, with f32 activations: hopper vs ref
-    # prefill, so that only f32 rounding separates them (eagerly, as before
-    # compiling: Inductor's fusions would add their own rounding)
-    cfg32 = dataclasses.replace(scfg, param_dtype="float32",
-                                compute_dtype="float32")
-    params32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
-                        params)
-    del params
-    pre32 = {}
-    with disable_compile():
-        for impl in ("hopper", None):
-            step, _, mk = SV.build_server(cfg32, SB, dev, rwkv_impl=impl)
-            t0 = time.perf_counter()
-            pre32[impl] = (*step(params32, batch, mk()),)
-            torch.cuda.synchronize()
-            pre32[impl] += (time.perf_counter() - t0,)
-    (lh, ch, th), (lr, cr, tr) = pre32["hopper"], pre32[None]
-    s_rel, l_rel = rel_errs(lh, ch, lr, cr)
-    print(f"[serve] f32 weights and activations: hopper prefill "
-          f"{th * 1e3:.1f} ms vs ref {tr * 1e3:.1f} ms; max |dS| / max|S| "
-          f"over layers {max(s_rel):.3e} (layer 0: {s_rel[0]:.3e}), max "
-          f"|dlogit| / max|logit| {l_rel:.3e} (limit {F32_PREFILL_TOL})")
-    if not (max(s_rel) <= F32_PREFILL_TOL and l_rel <= F32_PREFILL_TOL):
-        raise AssertionError("f32 hopper prefill leaves the ref envelope")
-    del params32, pre32, lh, ch, lr, cr
 
-    stamp("batch")
-
-    # -- 10. the kernels of both paths, and the port's status ------------
+    # -- 11. the kernels of both paths, and the port's status ------------
     print(json.dumps({"kernels": [records[k]
                                   for k in on_path + ("rwkv6_scan",)]}))
     status = [

@@ -142,11 +142,21 @@ def _record_event(device: torch.device) -> Optional[Any]:
 class DeviceBufferPool:
     """Free-lists of device tensors keyed by (shape, dtype, device).  A
     buffer released with a ``ready`` event is handed out again only behind
-    that event: ``acquire`` makes the current stream wait on it."""
+    that event: ``acquire`` makes the current stream wait on it.
 
-    def __init__(self, min_elems: int = POOL_MIN_ELEMS, device="cuda"):
+    ``budget`` (a :class:`~repro_torch.core.oversub.MemoryBudget`,
+    duck-typed: ``charge``/``release``) mirrors the pool's in-use bytes
+    into a logical device-capacity budget: every ``acquire`` of a pooled
+    buffer, free-list hits included, charges it and every ``release``
+    releases it, so budget accounting and ``PoolStats.bytes_in_use`` agree
+    byte for byte.  Unpooled buffers (below ``min_elems``) are never
+    charged."""
+
+    def __init__(self, min_elems: int = POOL_MIN_ELEMS, device="cuda",
+                 budget=None):
         self.min_elems = min_elems
         self.device = resolve_device(device)
+        self.budget = budget
         #: key -> [(buffer, ready event or None)]
         self._free: Dict[tuple, List[Tuple[torch.Tensor, Any]]] = {}
         self._lock = threading.Lock()
@@ -178,6 +188,8 @@ class DeviceBufferPool:
                 self.stats.misses += 1
                 self.stats.bytes_allocated += nbytes
             self._account_acquire_locked(nbytes)
+            if self.budget is not None:
+                self.budget.charge(nbytes)
         if buf is None:
             return torch.empty(shape, dtype=dtype, device=self.device)
         if ready is not None:
@@ -201,6 +213,8 @@ class DeviceBufferPool:
                                   []).append((buf, ready))
             self._free_bytes += nbytes
             self.stats.bytes_in_use = max(0, self.stats.bytes_in_use - nbytes)
+            if self.budget is not None:
+                self.budget.release(nbytes)
 
     @property
     def free_bytes(self) -> int:

@@ -38,6 +38,9 @@ of the example inputs become input slots that replay fills positionally;
 everything else (Python scalars, tensors computed outside any region) is
 captured as a constant.
 
+A leaf whose region carries a placement hint is placed by it before the
+async replay stages it (``_leaf_space``), as the reference places it.
+
 Trees are flattened with ``torch.utils._pytree``.  Still to come (ROADMAP
 A.3): ``verify``.
 """
@@ -52,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import umem
 from repro_torch.core.ledger import Ledger
 from repro_torch.core.pool import BufferRotation
 from repro_torch.core.regions import (Executor, Region, compile_disabled,
@@ -333,6 +337,20 @@ def capture(fn: Callable, *example_inputs, name: str = "program",
 # AsyncExecutor: one-op lookahead staging on a side stream
 # ---------------------------------------------------------------------------
 
+def _leaf_space(region: Region, key) -> Optional[umem.MemSpace]:
+    """The MemSpace hint (if any) governing the top-level arg/kwarg ``key``
+    — per-leaf mirror of ``Placer.place_args``."""
+    spaces = region.arg_spaces
+    if not spaces:
+        return None
+    sp = spaces.get(key)
+    if sp is None and isinstance(key, int):
+        for pname, idx in region._param_index.items():
+            if idx == key and pname in spaces:
+                return spaces[pname]
+    return sp
+
+
 def interval_overlap(t0: float, t1: float, spans) -> float:
     """Seconds of the interval ``[t0, t1]`` covered by the (disjoint)
     compute intervals ``spans``: staging hidden behind compute."""
@@ -472,6 +490,14 @@ class AsyncExecutor:
             tgt = pol.router.target(op.region, (), {}, size=op.example_size)
             return op.region.offloaded and tgt != "host"
 
+        def placed(op: OpCall, i: int, leaf):
+            """A leaf placed by its region's hint before it is staged."""
+            sp = _leaf_space(op.region, op.arg_keys[i])
+            if sp is not None and pol.placer.honor_hints:
+                return umem.tree_place(leaf, sp, pol.placer.device,
+                                       min_bytes=pol.placer.min_bytes)
+            return leaf
+
         pending: Optional[Tuple[int, _Prefetch]] = None
         prev_compute = (0.0, 0.0)
         for k, op in enumerate(prog.ops):
@@ -500,8 +526,8 @@ class AsyncExecutor:
             todo = [(i, x) for i, x in enumerate(raw)
                     if isinstance(x, torch.Tensor) and i not in staged_map]
             if todo:
-                staged, s, b = stager.stage_leaves([x for _, x in todo],
-                                                   rotation)
+                staged, s, b = stager.stage_leaves(
+                    [placed(op, i, x) for i, x in todo], rotation)
                 staging_s += s
                 staging_b += b
                 staged_map.update({i: y for (i, _), y in zip(todo, staged)})
@@ -522,7 +548,7 @@ class AsyncExecutor:
                         continue                # depends on op k: not ready
                     x = resolve(d)
                     if isinstance(x, torch.Tensor):
-                        ready.append((i, x))
+                        ready.append((i, placed(nxt, i, x)))
                 if ready:
                     rotation.advance()
                     pending = (k + 1, streams.prefetch(stager, ready,

@@ -31,9 +31,21 @@ share one memory in its CPU runs; an H100's do not.  So a call routed to
 the ``host`` target copies its CUDA operands to the CPU, runs there, and
 copies its results back to the operands' device.  Those crossings are
 real: the executor times them and books them on the call's ledger row as
-``staging_s``/``staging_bytes``.  CPU operands cross nothing.  This is the
-one place where the port's accounting departs from the reference's, whose
-``Executor.run`` stages only when the target is not ``host``.
+``staging_s``/``staging_bytes``.  CPU operands cross nothing.  The
+reference's ``Executor.run`` stages only when the target is not ``host``.
+
+What a demoted placement hint means on a discrete card.  In the
+reference a leaf that :class:`~repro_torch.core.oversub.BudgetedPlacer`
+sends to host space still feeds the device call, since its CPU runs share
+one memory.  On an H100 the demoted leaf is a pinned host tensor that a
+compiled CUDA region cannot take, so for a call that runs on the card the
+executor copies each leaf that placement moved off the card back in for
+that call alone, as managed memory migrates a page on touch, and books
+the copy as ``staging_s``/``staging_bytes`` on the call's row.  The call
+runs on the card, and the leaf stays demoted.
+
+These two are the places where the port's accounting departs from the
+reference's.
 """
 from __future__ import annotations
 
@@ -48,7 +60,7 @@ import subprocess
 import time
 import types
 import weakref
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -325,6 +337,14 @@ class Region:
     """One directive-sized region: fn + variants + compiled executables +
     hints.
 
+    ``arg_spaces`` maps positional index or keyword name to a
+    :class:`~repro_torch.core.umem.MemSpace` placement hint;
+    ``result_space`` hints where results should land — either one
+    ``MemSpace`` for the whole result, or a mapping from top-level tuple
+    index / dict key to a space.  Hints are *advisory*: the executing
+    policy's placement axis (:class:`Placer`) decides whether (and above
+    what byte threshold) to honor them.
+
     ``stencil`` declares the neighbour-access pattern as ``(grid_axis,
     offset)`` pairs and ``halo_args`` the arguments whose neighbours are
     read — plain metadata for a domain-decomposed replay.
@@ -341,6 +361,8 @@ class Region:
     fn: Callable
     offloaded: bool = True
     size_fn: Callable = default_size
+    arg_spaces: Optional[Mapping[Any, umem.MemSpace]] = None
+    result_space: Any = None      # MemSpace | {tuple index / dict key: MemSpace}
     stencil: Optional[Sequence[Tuple[int, int]]] = None
     halo_args: Optional[Sequence[Any]] = None
     donate_args: Optional[Sequence[int]] = None
@@ -479,18 +501,22 @@ class Region:
 
 def region(name: Optional[str] = None, *, offloaded: bool = True,
            ledger: Optional[Ledger] = None, size_fn: Optional[Callable] = None,
+           placement: Optional[Mapping[Any, umem.MemSpace]] = None,
+           result_space: Any = None,
            stencil: Optional[Sequence[Tuple[int, int]]] = None,
            halo_args: Optional[Sequence[Any]] = None,
            donate_args: Optional[Sequence[int]] = None):
     """Decorator: mark a function as one offloadable region (listings 4-6).
 
-        @region("Amul", stencil=dia.STENCIL_OFFSETS, halo_args=("x",))
+        @region("Amul", placement={0: MemSpace.DEVICE},
+                stencil=dia.STENCIL_OFFSETS, halo_args=("x",))
         def amul(diag, off, x): ...
     """
     def wrap(fn: Callable) -> Region:
         return Region(name=name or getattr(fn, "__name__", "region"),
                       fn=fn, offloaded=offloaded,
                       size_fn=size_fn or default_size,
+                      arg_spaces=placement, result_space=result_space,
                       stencil=stencil, halo_args=halo_args,
                       donate_args=donate_args,
                       ledger=ledger or GLOBAL_LEDGER)
@@ -544,6 +570,29 @@ def _storage_ptr(x: torch.Tensor) -> int:
     return x.untyped_storage().data_ptr()
 
 
+def _chunked_copy_into(h: torch.Tensor, dst: torch.Tensor, chunk_bytes: int):
+    """Stage ``h`` into the pooled device buffer ``dst`` in leading-axis
+    slabs of at most ``chunk_bytes`` (at least one row each) — the
+    managed-memory page-migration model with the page size set by a
+    :class:`~repro_torch.core.oversub.MemoryBudget`.  Each slab is one
+    ``copy_`` on the current stream, asynchronous from pinned pages.
+    Values are those of one whole copy (same bytes, another copy
+    granularity).  Returns ``(dst, n_slabs)``; the slab count is the
+    reference's."""
+    rows = int(h.shape[0]) if h.dim() else 0
+    row_bytes = umem.nbytes(h) // rows if rows else umem.nbytes(h)
+    slab = max(1, int(chunk_bytes) // max(int(row_bytes), 1))
+    if not rows or rows <= slab:
+        dst.copy_(h, non_blocking=True)
+        return dst, 1
+    n = 0
+    for start in range(0, rows, slab):
+        dst[start:start + slab].copy_(h[start:start + slab],
+                                      non_blocking=True)
+        n += 1
+    return dst, n
+
+
 @dataclasses.dataclass
 class MigrationStager:
     """Managed-memory dGPU model: every host<->device crossing is a REAL
@@ -567,11 +616,20 @@ class MigrationStager:
     caller still reads.  Inbound buffers
     return to the device pool after the region, except those an output
     aliases.  On a CPU-only torch both sides are CPU memory, and the copies
-    are still real, pooled and timed."""
+    are still real, pooled and timed.
+
+    ``budget`` (a :class:`~repro_torch.core.oversub.MemoryBudget`) bounds
+    the transient staging granule: a leaf larger than the budget's
+    ``staging_chunk_bytes()`` migrates in leading-axis slabs
+    (:func:`_chunked_copy_into`), each slab counted with ``note_chunks``.
+    Chunking changes the copy granularity, never values; a slab's source
+    is a view of the leaf, which the caller keeps alive until the copies
+    are waited on."""
     arena: UnifiedArena = dataclasses.field(default_factory=UnifiedArena)
     host_pool: HostStagingPool = dataclasses.field(
         default_factory=HostStagingPool)
     device_pool: Optional[DeviceBufferPool] = None
+    budget: Optional[Any] = None
     stages = True
 
     def __post_init__(self):
@@ -585,12 +643,18 @@ class MigrationStager:
 
     def _migrate_in(self, x, rotation=None):
         """One leaf into a pooled device buffer (a bank of ``rotation`` when
-        given), copied on the current stream."""
+        given), copied on the current stream, in slabs under a budget."""
         if not isinstance(x, torch.Tensor):
             return x
         pool = rotation if rotation is not None else self.device_pool
         dst = pool.acquire(x.shape, x.dtype)
-        dst.copy_(x, non_blocking=True)             # host -> device copy
+        chunk = self.budget.staging_chunk_bytes() \
+            if self.budget is not None else None
+        if chunk is not None and umem.nbytes(x) > chunk:
+            dst, n = _chunked_copy_into(x, dst, chunk)  # budgeted slabs
+            self.budget.note_chunks(n)
+        else:
+            dst.copy_(x, non_blocking=True)         # host -> device copy
         return dst
 
     def _migrate_out(self, x):
@@ -640,17 +704,69 @@ class MigrationStager:
         return staged, time.perf_counter() - t0, nbytes
 
 
+@dataclasses.dataclass
 class Placer:
-    """Placement axis.  No region of the port declares a
-    :class:`~repro_torch.core.umem.MemSpace` hint yet, so placement leaves operands and results
-    where they are; the hint fields and their application come with the
-    first region that needs one."""
+    """Placement axis: apply a region's MemSpace hints through umem.
+
+    ``min_bytes`` is the paper-C4-style threshold: leaves smaller than it
+    stay where they are (placing a scalar across spaces costs more than it
+    saves).  ``device`` is the accelerator that ``MemSpace.DEVICE`` means.
+
+    ``_place_tree`` is the single placement primitive every hint flows
+    through — subclasses override it to make placement *conditional*
+    (:class:`~repro_torch.core.oversub.BudgetedPlacer` demotes device
+    hints to host space when a memory budget lacks headroom)."""
+    min_bytes: int = 0
+    honor_hints: bool = True
+    device: Any = "cuda"
+
+    def _place_tree(self, tree, space: umem.MemSpace):
+        return umem.tree_place(tree, space, self.device,
+                               min_bytes=self.min_bytes)
 
     def place_args(self, region: Region, args, kwargs):
-        return args, kwargs
+        if not (self.honor_hints and region.arg_spaces):
+            return args, kwargs
+        args = list(args)
+        kwargs = dict(kwargs)
+        for key, space in region.arg_spaces.items():
+            if isinstance(key, str):
+                if key in kwargs:
+                    kwargs[key] = self._place_tree(kwargs[key], space)
+                    continue
+                # name hint for a positionally-passed argument
+                key = region._param_index.get(key, -1)
+            if isinstance(key, int) and 0 <= key < len(args):
+                args[key] = self._place_tree(args[key], space)
+        return tuple(args), kwargs
 
     def place_result(self, region: Region, out):
-        return out
+        if not (self.honor_hints and region.result_space is not None):
+            return out
+        rs = region.result_space
+        if isinstance(rs, Mapping):
+            # keyed form: place only the named top-level result elements
+            if isinstance(out, tuple):
+                placed = list(out)
+                for key, space in rs.items():
+                    if isinstance(key, int) and 0 <= key < len(placed):
+                        placed[key] = self._place_tree(placed[key], space)
+                return tuple(placed)
+            if isinstance(out, dict):
+                return {k: self._place_tree(v, rs[k])
+                        if k in rs else v for k, v in out.items()}
+            return out
+        return self._place_tree(out, rs)
+
+
+def _demoted(before, after) -> list:
+    """Leaf indices of ``after`` that placement moved off the card: a
+    tensor leaf on a non-CPU device in ``before`` and on the CPU in
+    ``after`` (the two trees have one structure)."""
+    return [i for i, (b, a) in enumerate(zip(pytree.tree_leaves(before),
+                                             pytree.tree_leaves(after)))
+            if isinstance(b, torch.Tensor) and b.device.type != "cpu"
+            and isinstance(a, torch.Tensor) and a.device.type == "cpu"]
 
 
 @dataclasses.dataclass
@@ -720,35 +836,59 @@ class HostPolicy(ComposedPolicy):
 
 class DiscretePolicy(ComposedPolicy):
     """Managed-memory dGPU model: offloaded regions run on ``device`` and
-    pay real staging copies both ways (paper Fig 6)."""
+    pay real staging copies both ways (paper Fig 6).
+
+    ``budget`` (a :class:`~repro_torch.core.oversub.MemoryBudget`) makes
+    the policy oversubscription-aware: the device pool charges its
+    in-use bytes against it and the stager migrates in budget-sized
+    slabs."""
 
     def __init__(self, arena: Optional[UnifiedArena] = None,
                  host_pool: Optional[HostStagingPool] = None,
                  device_pool: Optional[DeviceBufferPool] = None,
                  placer: Optional[Placer] = None,
                  selector: Optional[Any] = None,
-                 device: Any = "cuda"):
+                 device: Any = "cuda",
+                 budget: Optional[Any] = None):
         arena = arena or UnifiedArena(device)
+        if device_pool is None:
+            device_pool = DeviceBufferPool(device=arena.device, budget=budget)
         super().__init__("discrete", StaticRouter("device", "default"),
                          MigrationStager(arena,
                                          host_pool or HostStagingPool(),
-                                         device_pool),
-                         placer or Placer(),
+                                         device_pool, budget=budget),
+                         placer or Placer(device=arena.device),
                          selector or StaticSelector("ref"))
         self.arena = arena
+        self.budget = budget
 
 
 class AdaptivePolicy(ComposedPolicy):
     """Calibrated size-based routing inside an executor: the
     ``TARGET_CUT_OFF`` clause as a policy axis.  Calls above the cutoff run
-    where the operands live (on the card), the rest on the host."""
+    where the operands live (on the card), the rest on the host.
+
+    With a ``budget`` and no ``stager``, device-routed calls pay
+    budget-chunked staging like the discrete model: a
+    :class:`MigrationStager` to ``device`` whose pool charges the
+    budget."""
 
     def __init__(self, cutoff: int = DEFAULT_CUTOFF,
+                 stager: Optional[Any] = None,
                  placer: Optional[Placer] = None,
-                 selector: Optional[Any] = None):
-        super().__init__("adaptive", SizeRouter(cutoff), NullStager(),
-                         placer or Placer(),
+                 selector: Optional[Any] = None,
+                 budget: Optional[Any] = None,
+                 device: Any = "cuda"):
+        if stager is None and budget is not None:
+            arena = UnifiedArena(device)
+            stager = MigrationStager(
+                arena, device_pool=DeviceBufferPool(device=arena.device,
+                                                    budget=budget),
+                budget=budget)
+        super().__init__("adaptive", SizeRouter(cutoff),
+                         stager or NullStager(), placer or Placer(),
                          selector or StaticSelector("ref"))
+        self.budget = budget
         #: {size: {"host": s, "device": s}} of the last calibration
         self.calibration: Dict[int, Dict[str, float]] = {}
 
@@ -847,6 +987,7 @@ class Executor:
         n = r.size_fn(args, kwargs)
         tgt = pol.router.target(r, args, kwargs, size=n)
         impl = r.resolve(pol.selector.select(r, tgt, args, kwargs, size=n))
+        unplaced = (args, kwargs)
         args, kwargs = pol.placer.place_args(r, args, kwargs)
         staging_s = 0.0
         staging_b = 0
@@ -858,6 +999,17 @@ class Executor:
             staged_in = (args, kwargs)
             staging_s += s
             staging_b += b
+        elif tgt != "host" and r.arg_spaces:
+            # leaves demoted off the card migrate in for this call alone
+            # (the module docstring)
+            demoted = _demoted(unplaced, (args, kwargs))
+            if demoted:
+                t0 = time.perf_counter()
+                (args, kwargs), b = self._migrate_demoted(
+                    unplaced, (args, kwargs), demoted)
+                synchronize()
+                staging_s += time.perf_counter() - t0
+                staging_b += b
         elif tgt == "host":
             home = _home_device((args, kwargs))
             if home is not None:                    # the crossing to the CPU
@@ -889,6 +1041,18 @@ class Executor:
                            compute_s=compute_s, staging_s=staging_s,
                            staging_bytes=staging_b, elems=n, impl=impl)
         return out
+
+    @staticmethod
+    def _migrate_demoted(unplaced, placed, demoted):
+        """``placed`` with each leaf at index ``demoted`` copied back to its
+        device in ``unplaced``; returns (tree, bytes copied)."""
+        leaves, spec = pytree.tree_flatten(placed)
+        homes = pytree.tree_leaves(unplaced)
+        moved = 0
+        for i in demoted:
+            moved += umem.nbytes(leaves[i])
+            leaves[i] = leaves[i].to(homes[i].device, non_blocking=True)
+        return pytree.tree_unflatten(leaves, spec), moved
 
     def report(self) -> dict:
         rep = self.ledger.coverage_report()

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -28,13 +28,18 @@ class MemSpace(enum.Enum):
 
 
 def resolve_device(device: Any = "cuda") -> torch.device:
-    """``torch.device`` for ``device``; raises when CUDA is asked for and
-    absent — the port never carries on silently on the CPU."""
+    """``torch.device`` for ``device``, a CUDA device with its index (the
+    current device's for a bare ``"cuda"``, so that it compares equal to
+    the ``.device`` of the tensors made on it); raises when CUDA is asked
+    for and absent — the port never carries on silently on the CPU."""
     d = torch.device(device)
-    if d.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            "False; pass device='cpu' to run on the CPU")
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but torch.cuda.is_available() "
+                "is False; pass device='cpu' to run on the CPU")
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
     return d
 
 
@@ -74,9 +79,54 @@ def place(x, space: MemSpace, device: Any = "cuda"):
     return x.cpu()
 
 
-def tree_place(tree, space: MemSpace, device: Any = "cuda"):
-    """Place every tensor leaf of a tree into a memory space."""
-    return tree_map(lambda x: place(x, space, device), tree)
+def tree_place(tree, space: MemSpace, device: Any = "cuda",
+               min_bytes: int = 0):
+    """Place every tensor leaf of a tree into a memory space.
+
+    ``min_bytes`` is a placement threshold (paper C4's "pool only buffers
+    above 5K elements", applied to placement): leaves smaller than it stay
+    where they are — moving a scalar across spaces costs more than it
+    saves."""
+    def maybe(x):
+        if min_bytes and nbytes(x) < min_bytes:
+            return x
+        return place(x, space, device)
+    return tree_map(maybe, tree)
+
+
+def default_spill_space() -> MemSpace:
+    """Where a leaf lands when the device budget lacks room: pinned host
+    memory on a CUDA build, pageable CPU memory otherwise."""
+    return MemSpace.HOST if can_pin() else MemSpace.HOST_UNPINNED
+
+
+def tree_place_budgeted(tree, budget, device: Any = "cuda",
+                        min_bytes: int = 0,
+                        device_space: MemSpace = MemSpace.DEVICE,
+                        spill_space: Optional[MemSpace] = None,
+                        charge: bool = True):
+    """Place leaves into ``device_space`` while ``budget`` (a
+    :class:`~repro_torch.core.oversub.MemoryBudget`, duck-typed ``admit``/
+    ``consult``) has headroom; leaves beyond it land in ``spill_space``
+    (:func:`default_spill_space` when None) instead of failing — the
+    oversubscription model: exceeding device capacity degrades placement,
+    never correctness.  ``charge=True`` accounts admitted leaves as
+    device-resident (``budget.admit``; the caller releases them);
+    ``charge=False`` only consults — the advisory form used for per-call
+    placement hints.  Leaves are visited in :func:`tree_map` order, so the
+    same tree under the same budget always splits the same way (``None``
+    is no leaf, as in ``jax.tree.map``)."""
+    spill = spill_space or default_spill_space()
+
+    def maybe(x):
+        if x is None:
+            return x
+        n = nbytes(x)
+        if min_bytes and n < min_bytes:
+            return x
+        ok = budget.admit(n) if charge else budget.consult(n)
+        return place(x, device_space if ok else spill, device)
+    return tree_map(maybe, tree)
 
 
 def nbytes(x) -> int:

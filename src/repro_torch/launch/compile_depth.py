@@ -15,7 +15,8 @@ cache (under ``build/compile_depth/``), so no run reuses another's
 compiled code.  Each prints one JSON line: the seconds of the step's
 first call (trace, compile and run), and the subgraphs and layer-op calls
 in the graph Dynamo hands to Inductor.  Weights are random (seed 0), batch
-4, one decode step.  Runs on CUDA unless ``--device cpu`` is given.
+4, one decode step (an attention arch against a cache of 8 slots).  Runs
+on CUDA unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ from repro_torch.models import transformer as T
 from repro_torch.train import step as S
 
 DESIGNS = ("inline", "nested", "layer_op")
+#: KV slots of an attention layer's cache (the step decodes position 1)
+KV_SLOTS = 8
 CACHE_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "compile_depth"
 
@@ -51,7 +54,7 @@ def one_run(args, design: str, depth: int) -> dict:
     cfg = dataclasses.replace(cfg, n_layers=depth)
     dev = resolve_device(args.device)
     params = T.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
-    caches = T.init_cache(cfg, 4, dev)
+    caches = T.init_cache(cfg, 4, dev, KV_SLOTS)
     tok = torch.zeros(4, dtype=torch.int32, device=dev)
     ctx = T.Ctx(mode="decode")
     if design == "layer_op":
@@ -59,15 +62,18 @@ def one_run(args, design: str, depth: int) -> dict:
     else:
         layers = None
         if design == "nested":
+            (mk, lk), = dict.fromkeys(T.layer_kinds(cfg))
+
             @torch.compiler.nested_compile_region
-            def layer(p, x, c):        # tensors out: x, then the new cache
-                x, nc = T.layer_fwd(p, x, cfg, "rwkv", "cm", ctx, c)
+            def layer(p, x, c, pos):   # tensors out: x, then the new cache
+                x, nc = T.layer_fwd(p, x, cfg, mk, lk,
+                                    dataclasses.replace(ctx, pos=pos), c)
                 return (x, *(nc[k] for k in c))
 
-            def nested(p, x, c):
-                x, *state = layer(p, x, c)
+            def nested(p, x, c, pos):
+                x, *state = layer(p, x, c, pos)
                 return x, dict(zip(c, state))
-            layers = {("rwkv", "cm"): nested}
+            layers = {(mk, lk): nested}
 
         def step(p, t, c, pos):
             return T.decode_step(p, t, c, pos, cfg, ctx, layers)

@@ -3,6 +3,7 @@ compiled prefill and one compiled decode step of the captured serve
 programs, summarised.
 
     PYTHONPATH=src python -m repro_torch.launch.profile \\
+        [--arch rwkv6-7b|tinyllama-1.1b|llama3.2-3b] \\
         [--batch 4 --prompt-len 1024] [--layers N] [--reduced] \\
         [--trace-dir DIR]
 
@@ -150,7 +151,7 @@ def main(argv=None):
     regions = SV.make_serve_regions(cfg, params, ledger=ex.ledger)
 
     def cache():
-        return T.init_cache(cfg, args.batch, device)
+        return T.init_cache(cfg, args.batch, device, args.prompt_len + 2)
 
     t0 = time.perf_counter()
     pprog = SV.capture_prefill_program(regions, batch, cache(),

@@ -13,7 +13,10 @@ hopper``, the default) every layer's time-mix scan in prefill runs on the
 CUDA kernel K5.  This is the reference's own ``rwkv_train(impl=...)``
 selection carried through to the entry point, not a new feature; the
 ``ref`` variant keeps the reference's chunked closed form.  Decode runs
-the sequential scan with T=1, as in the reference.
+the sequential scan with T=1, as in the reference.  An attention arch
+(``tinyllama-1.1b``, ``llama3.2-3b``) has no kernel: both variants run
+the same plain attention, prefill in query chunks of 256 (the reference
+serve's ``q_chunk``), against a KV cache of prompt + generated slots.
 
 Every region runs as a compiled executable (``torch.compile``,
 ``fullgraph=True``); ``KV_APPEND`` donates its cache, so the commit
@@ -29,6 +32,8 @@ the captured decode program over all of them at once through
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --batch 4 --prompt-len 1024 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch tinyllama-1.1b --reduced --device cpu --prompt-len 32 --gen 8
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
         --device cpu --impl ref --prompt-len 32 --gen 8 --replay-batch 2
 
@@ -61,6 +66,14 @@ from repro_torch.train import step as S
 
 #: the ``Ctx.rwkv_impl`` each variant of ``PREFILL`` runs with
 PREFILL_RWKV_IMPL = {"ref": None, "hopper": "hopper"}
+
+#: prefill's attention query chunk (the reference serve's ``q_chunk``)
+Q_CHUNK = 256
+
+
+def prefill_ctx(rwkv_impl: Optional[str] = None):
+    """The serve path's prefill context."""
+    return T.Ctx(mode="prefill", rwkv_impl=rwkv_impl, q_chunk=Q_CHUNK)
 
 
 def position(p: int) -> torch.Tensor:
@@ -111,8 +124,7 @@ def make_serve_regions(cfg, params, *,
     returns that storage at O(1); without donation (a staging policy) it
     returns a copy."""
     prefill_steps = {
-        name: S.make_prefill_step(
-            cfg, lambda impl=impl: T.Ctx(mode="prefill", rwkv_impl=impl))
+        name: S.make_prefill_step(cfg, lambda impl=impl: prefill_ctx(impl))
         for name, impl in PREFILL_RWKV_IMPL.items()}
     greedy_decode = make_greedy_decode(cfg)
 
@@ -180,20 +192,21 @@ def capture_decode_program(regions: ServeRegions, prompt_len: int, gen: int,
 # The uncaptured path (the oracle of the captured one)
 # ---------------------------------------------------------------------------
 
-def build_server(cfg, batch: int, device, rwkv_impl: Optional[str] = None):
+def build_server(cfg, batch: int, device, rwkv_impl: Optional[str] = None,
+                 max_len: int = 0):
     """(prefill, decode, make_cache) step functions without regions, each
     compiled (``fullgraph=True``) as the reference jits them, unless built
     inside ``disable_compile``.  ``prefill(params, batch, cache) ->
     (logits, cache)``; ``decode(params, tok, cache, pos) -> (next tok,
     cache)`` with the cache (argument 2) donated: the new state is written
-    over the old one, which the caller must not read again."""
-    prefill = S.make_prefill_step(
-        cfg, lambda: T.Ctx(mode="prefill", rwkv_impl=rwkv_impl))
+    over the old one, which the caller must not read again.  ``max_len``
+    sizes an attention arch's KV cache (prompt + generated tokens)."""
+    prefill = S.make_prefill_step(cfg, lambda: prefill_ctx(rwkv_impl))
     decode = make_greedy_decode(cfg)
     if not compile_disabled():
         prefill = compile_region_fn(prefill, f"prefill_{rwkv_impl}")
         decode = compile_region_fn(decode, "decode", donate=(2,))
-    return prefill, decode, lambda: T.init_cache(cfg, batch, device)
+    return prefill, decode, lambda: T.init_cache(cfg, batch, device, max_len)
 
 
 def decode_stream(decode, params, tok, cache, prompt_len: int, gen: int):
@@ -263,6 +276,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = make_reduced(cfg)
+    max_len = args.prompt_len + args.gen
     device = resolve_device(args.device)
     ex = Executor(lm_policy(args.policy, selector=StaticSelector(args.impl),
                             device=device), Ledger("serve"))
@@ -276,11 +290,11 @@ def main(argv=None):
     # -- captured-program path (the accounted serving spine) -------------
     selector = ex.policy.selector
     prefill_prog = capture_prefill_program(
-        regions, batch, T.init_cache(cfg, args.batch, device),
+        regions, batch, T.init_cache(cfg, args.batch, device, max_len),
         selector=selector)
     t0 = time.perf_counter()
-    tok, cache = prefill_prog.replay(ex, batch,
-                                     T.init_cache(cfg, args.batch, device))
+    tok, cache = prefill_prog.replay(
+        ex, batch, T.init_cache(cfg, args.batch, device, max_len))
     t_prefill = time.perf_counter() - t0
     # capture runs the regions eagerly, so its examples live on the card
     # (under the discrete policy the replay handed them back in host pages)
@@ -297,7 +311,8 @@ def main(argv=None):
     stream_note = ""
     impl = PREFILL_RWKV_IMPL[regions.prefill.resolve(args.impl)]
     prefill, decode, make_cache = build_server(cfg, args.batch, device,
-                                               rwkv_impl=impl)
+                                               rwkv_impl=impl,
+                                               max_len=max_len)
     if args.policy == "unified":
         logits, cache_j = prefill(params, batch, make_cache())
         t2 = time.perf_counter()

@@ -10,9 +10,12 @@ dicts (``params["layers"][i]``, cache ``caches[i]``), which
 :func:`layers_of` unstacks.
 
 Two entry points share the layer interpreter: :func:`prefill` (full
-prompt, fills the recurrent state) and :func:`decode_step` (one token
-against it).  The port runs the ``rwkv`` mixer with its channel-mix MLP;
-every other mixer raises ``NotImplementedError`` (ROADMAP A.7).
+prompt, fills the recurrent state or the KV cache) and
+:func:`decode_step` (one token against it).  The port runs the ``rwkv``
+mixer with its channel-mix MLP and the global ``attn`` mixer (RoPE, GQA)
+with the dense SwiGLU MLP; every other mixer raises
+``NotImplementedError`` (ROADMAP A.5), and so does attention in train
+mode (A.7).
 
 ``Ctx.rwkv_impl`` carries the reference's ``rwkv_train(impl=...)``
 selection through to the entry point: ``None`` keeps the chunked closed
@@ -30,9 +33,11 @@ import torch
 from repro_torch.core.regions import (CompileStats, compile_disabled,
                                       compile_region_fn)
 from repro_torch.core.umem import tree_map
+from repro_torch.models import attention as A
 from repro_torch.models import rwkv6 as R
-from repro_torch.models.layers import (embed, embed_specs, lm_logits, noshard,
-                                       rmsnorm, rmsnorm_spec)
+from repro_torch.models.layers import (embed, embed_specs, lm_logits, mlp,
+                                       mlp_specs, noshard, rmsnorm,
+                                       rmsnorm_spec)
 from repro_torch.models.params import (ParamSpec, init_params, stack_specs,
                                        torch_dtype)
 
@@ -41,14 +46,21 @@ from repro_torch.models.params import (ParamSpec, init_params, stack_specs,
 class Ctx:
     mode: str = "train"                  # train | prefill | decode
     shd: Callable = noshard
+    q_chunk: int = 512
     rwkv_chunk: int = 32
-    pos: Optional[int] = None            # decode position
+    pos: Any = None                      # decode position: int or 0-d tensor
     rwkv_impl: Optional[str] = None      # RWKV6_SCAN variant; None: rwkv_chunk
+    flash: bool = True                   # prefill attention: flash forward
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A.7); the "
-                               "port runs the rwkv mixer with its channel-mix")
+#: the layer kinds the port runs: (mixer, mlp kind)
+PORTED = (("rwkv", "cm"), ("attn", "dense"))
+
+
+def _not_ported(what: str, item: str = "A.5"):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP {item}); the port runs the rwkv "
+        "mixer with its channel-mix and the attn mixer with the dense MLP")
 
 
 # ---------------------------------------------------------------------------
@@ -97,13 +109,13 @@ def layers_of(cfg, tree) -> list:
 
 
 def _one_layer_specs(cfg, mixer: str, mlp_kind: str) -> dict:
-    if mixer != "rwkv":
-        raise _not_ported(f"mixer {mixer!r}")
-    if mlp_kind != "cm":
-        raise _not_ported(f"mlp {mlp_kind!r}")
+    if (mixer, mlp_kind) not in PORTED:
+        raise _not_ported(f"layer ({mixer!r}, {mlp_kind!r})")
     d = cfg.d_model
-    return {"norm1": rmsnorm_spec(d), "norm2": rmsnorm_spec(d),
-            "mixer": R.rwkv_specs(cfg), "mlp": R.channelmix_specs(cfg)}
+    s = {"norm1": rmsnorm_spec(d), "norm2": rmsnorm_spec(d)}
+    if mixer == "attn":
+        return {**s, "mixer": A.attn_specs(cfg), "mlp": mlp_specs(cfg)}
+    return {**s, "mixer": R.rwkv_specs(cfg), "mlp": R.channelmix_specs(cfg)}
 
 
 def _by_plan(cfg, one) -> dict:
@@ -133,10 +145,15 @@ def init(gen: torch.Generator, cfg, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Recurrent state (the rwkv "cache")
+# Cache / state layout: the rwkv recurrent state, the attention KV cache
 # ---------------------------------------------------------------------------
 
-def _one_layer_cache_specs(cfg, mixer, batch):
+def _one_layer_cache_specs(cfg, mixer, batch, s_max: int):
+    if mixer == "attn":
+        if s_max < 1:
+            raise ValueError("an attention layer's KV cache needs s_max >= 1 "
+                             "slots (the prompt plus the generated tokens)")
+        return A.cache_specs(cfg, mixer, batch, s_max)
     if mixer != "rwkv":
         raise _not_ported(f"mixer {mixer!r}")
     rs = R.rwkv_state_specs(cfg, batch)
@@ -145,16 +162,22 @@ def _one_layer_cache_specs(cfg, mixer, batch):
     return rs
 
 
-def cache_specs(cfg, batch: int) -> dict:
-    return _by_plan(cfg, lambda mk, lk: _one_layer_cache_specs(cfg, mk, batch))
+def cache_specs(cfg, batch: int, s_max: int = 0) -> dict:
+    """The reference's cache layout; ``s_max`` is the KV slots of an
+    attention layer (the rwkv state has no sequence axis)."""
+    return _by_plan(cfg, lambda mk, lk: _one_layer_cache_specs(cfg, mk, batch,
+                                                               s_max))
 
 
-def init_cache(cfg, batch: int, device) -> list:
-    """Zero state, one dict ``{"S", "x_prev", "x_cm"}`` per layer."""
-    zeros = tree_map(lambda s: torch.zeros(s.shape, dtype=torch_dtype(s.dtype),
-                                           device=device),
-                     cache_specs(cfg, batch))
-    return layers_of(cfg, zeros)
+def init_cache(cfg, batch: int, device, s_max: int = 0) -> list:
+    """The empty cache, one dict per layer: ``{"S", "x_prev", "x_cm"}``
+    (zeros) for an rwkv layer, ``{"k", "v", "pos"}`` for an attention
+    layer (zeros, and -1 in every ``pos`` slot: empty)."""
+    def empty(s):
+        if s.dtype == "int32":
+            return torch.full(s.shape, -1, dtype=torch.int32, device=device)
+        return torch.zeros(s.shape, dtype=torch_dtype(s.dtype), device=device)
+    return layers_of(cfg, tree_map(empty, cache_specs(cfg, batch, s_max)))
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +186,10 @@ def init_cache(cfg, batch: int, device) -> list:
 
 def layer_fwd(p, x, cfg, mixer: str, mlp_kind: str, ctx: Ctx, cache=None):
     """Returns (x_out, new_cache)."""
-    if mixer != "rwkv" or mlp_kind != "cm":
+    if (mixer, mlp_kind) not in PORTED:
         raise _not_ported(f"layer ({mixer!r}, {mlp_kind!r})")
+    if mixer == "attn":
+        return _attn_layer(p, x, cfg, ctx, cache)
     h = rmsnorm(x, p["norm1"])
     state = None
     if cache is not None:
@@ -191,6 +216,21 @@ def layer_fwd(p, x, cfg, mixer: str, mlp_kind: str, ctx: Ctx, cache=None):
     return x + y2, new_cache
 
 
+def _attn_layer(p, x, cfg, ctx: Ctx, cache):
+    """A global attention layer and its dense MLP: (x_out, new cache)."""
+    h = rmsnorm(x, p["norm1"])
+    if ctx.mode == "prefill":
+        y, new_cache = A.attn_prefill(p["mixer"], h, cfg, kind="attn",
+                                      ctx=ctx, cache=cache)
+    elif ctx.mode == "decode":
+        y, new_cache = A.attn_decode(p["mixer"], h, cfg, kind="attn",
+                                     ctx=ctx, cache=cache)
+    else:
+        raise _not_ported("attention in train mode (attn_train)", "A.7")
+    x = x + y
+    return x + mlp(p["mlp"], rmsnorm(x, p["norm2"]), ctx.shd), new_cache
+
+
 # ---------------------------------------------------------------------------
 # Backbone drivers
 # ---------------------------------------------------------------------------
@@ -208,9 +248,18 @@ def _rebuild(template: dict, leaves) -> dict:
                 else next(leaves)) for k in sorted(template)}
 
 
-#: every :class:`LayerOp` made so far, by (cfg, mixer, mlp_kind, mode, shd,
-#: rwkv_chunk, rwkv_impl): steps of one config and mode share one
+#: every :class:`LayerOp` made so far, by (cfg, mixer, mlp_kind, mode, shd)
+#: and the context fields that mixer reads (:func:`_ctx_key`): steps of one
+#: config and mode share one
 LAYER_OPS: Dict[tuple, "LayerOp"] = {}
+
+
+def _ctx_key(mixer: str, ctx: Ctx) -> tuple:
+    """The context fields a mixer reads, besides ``mode``, ``shd`` and the
+    decode position (an input of the op)."""
+    if mixer == "rwkv":
+        return ("rwkv", ctx.rwkv_chunk, ctx.rwkv_impl)
+    return ("attn", ctx.q_chunk, ctx.flash)
 
 
 class LayerOp:
@@ -226,24 +275,29 @@ class LayerOp:
     torch 2.11 Dynamo traced and Inductor lowered every call of it anew,
     and it has no batching rule.)
 
-    The op's outputs are ``x`` and the new cache leaves, contiguous; its
-    fake implementation gives each the shape, dtype and layout of the input
-    it replaces (a layer maps ``x`` and its recurrent state to tensors like
+    The op's inputs are the parameters, ``x``, the cache leaves and the
+    decode position (a 0-d tensor, or None outside decode).  Its outputs
+    are ``x`` and the new cache leaves, contiguous; its fake implementation
+    gives each the shape, dtype and layout of the input it replaces (a
+    layer maps ``x`` and its recurrent state or KV cache to tensors like
     them).  Its vmap rule calls it once per row of the vmapped axis, so a
     batched replay runs the solo replay's compiled layer at its shapes."""
 
     def __init__(self, cfg, mixer: str, mlp_kind: str, ctx: Ctx):
-        self.label = (f"layer_{mixer}_{mlp_kind}_{ctx.mode}_"
-                      f"{ctx.rwkv_impl or 'ref'}_{len(LAYER_OPS)}")
+        impl = (ctx.rwkv_impl or "ref") if mixer == "rwkv" else \
+            ("flash" if ctx.flash else "chunked")
+        self.label = (f"layer_{mixer}_{mlp_kind}_{ctx.mode}_{impl}_"
+                      f"{len(LAYER_OPS)}")
         self.stats = CompileStats()
         self._compiled = None
         template = _one_layer_specs(cfg, mixer, mlp_kind)
-        self._cache_keys = tuple(_one_layer_cache_specs(cfg, mixer, 1))
+        self._cache_keys = tuple(_one_layer_cache_specs(cfg, mixer, 1, 1))
 
-        def layer(params, x, cache):
+        def layer(params, x, cache, pos):
             p = _rebuild(template, iter(params))
             c = dict(zip(self._cache_keys, cache)) if cache else None
-            x, nc = layer_fwd(p, x, cfg, mixer, mlp_kind, ctx, c)
+            lctx = ctx if pos is None else dataclasses.replace(ctx, pos=pos)
+            x, nc = layer_fwd(p, x, cfg, mixer, mlp_kind, lctx, c)
             return [x] if nc is None else [x, *(nc[k] for k in
                                                 self._cache_keys)]
         self.layer = layer
@@ -251,29 +305,31 @@ class LayerOp:
         @torch.library.custom_op(f"repro_torch::{self.label}",
                                  mutates_args=())
         def op(params: List[torch.Tensor], x: torch.Tensor,
-               cache: List[torch.Tensor]) -> List[torch.Tensor]:
+               cache: List[torch.Tensor],
+               pos: Optional[torch.Tensor]) -> List[torch.Tensor]:
             if compile_disabled():
-                outs = layer(params, x, cache)
+                outs = layer(params, x, cache, pos)
             else:
                 # one dispatch state on every call: the compiled graph's
                 # first run reaches here with ADInplaceOrView excluded, a
                 # later run not, and Dynamo guards on it (a recompile)
                 with torch._C._AutoDispatchBelowADInplaceOrView():
-                    outs = self._executable()(params, x, cache)
+                    outs = self._executable()(params, x, cache, pos)
             return [o.contiguous() for o in outs]
 
         @op.register_fake
-        def _(params, x, cache):
+        def _(params, x, cache, pos):
             return [torch.empty_like(t, memory_format=torch.contiguous_format)
                     for t in (x, *cache)]
 
         @op.register_vmap
-        def _(info, in_dims, params, x, cache):
+        def _(info, in_dims, params, x, cache, pos):
             def row(t, d, i):
                 return t if d is None else t.select(d, i).contiguous()
             outs = [op([row(t, d, i) for t, d in zip(params, in_dims[0])],
                        row(x, in_dims[1], i),
-                       [row(t, d, i) for t, d in zip(cache, in_dims[2])])
+                       [row(t, d, i) for t, d in zip(cache, in_dims[2])],
+                       None if pos is None else row(pos, in_dims[3], i))
                     for i in range(info.batch_size)]
             return [torch.stack(o) for o in zip(*outs)], [0] * len(outs[0])
 
@@ -285,23 +341,26 @@ class LayerOp:
                                                stats=self.stats)
         return self._compiled
 
-    def __call__(self, p, x, cache=None):
-        """``(x, new cache or None)`` of one layer with parameters ``p``."""
+    def __call__(self, p, x, cache=None, pos=None):
+        """``(x, new cache or None)`` of one layer with parameters ``p``;
+        ``pos`` is the decode position (an int or a 0-d tensor)."""
         keys = self._cache_keys if cache is not None else ()
-        x, *state = self.op(_leaves(p), x, [cache[k] for k in keys])
+        if pos is not None:
+            pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+        x, *state = self.op(_leaves(p), x, [cache[k] for k in keys], pos)
         return x, (None if cache is None else
                    {k: state[keys.index(k)] for k in cache})
 
 
 def layer_fns(cfg, ctx: Ctx) -> dict:
     """``{(mixer, mlp_kind): LayerOp}`` for the layer kinds of ``cfg`` under
-    ``ctx`` (the mode's context; its ``pos`` is not read: the ported mixer
-    does not use it), made once per config and context.  Build them outside
-    any compiled function and pass them to :func:`prefill` /
-    :func:`decode_step` as ``layers``."""
+    ``ctx`` (the mode's context; its ``pos`` is not read: the position is
+    an input of each call), made once per config, mode and the context
+    fields its mixer reads.  Build them outside any compiled function and
+    pass them to :func:`prefill` / :func:`decode_step` as ``layers``."""
     fns = {}
     for mk, lk in dict.fromkeys(layer_kinds(cfg)):
-        key = (cfg, mk, lk, ctx.mode, ctx.shd, ctx.rwkv_chunk, ctx.rwkv_impl)
+        key = (cfg, mk, lk, ctx.mode, ctx.shd, _ctx_key(mk, ctx))
         if key not in LAYER_OPS:
             LAYER_OPS[key] = LayerOp(cfg, mk, lk, ctx)
         fns[(mk, lk)] = LAYER_OPS[key]
@@ -318,7 +377,7 @@ def _run_layers(params, x, cfg, ctx: Ctx, caches=None, layers=None):
         if layers is None:
             x, nc = layer_fwd(params["layers"][i], x, cfg, mk, lk, ctx, c)
         else:
-            x, nc = layers[(mk, lk)](params["layers"][i], x, c)
+            x, nc = layers[(mk, lk)](params["layers"][i], x, c, ctx.pos)
         new_caches.append(nc)
     return x, (new_caches if caches is not None else None)
 
@@ -334,11 +393,12 @@ def prefill(params, batch, cfg, ctx: Ctx, caches, layers=None):
 
 
 def decode_step(params, token, caches, pos, cfg, ctx: Ctx, layers=None):
-    """token [B] int; pos int or 0-d int tensor.  Returns (logits [B,1,V],
-    caches).
+    """token [B] int; pos int or 0-d int tensor (moved to the token's
+    device once, for every layer).  Returns (logits [B,1,V], caches).
     ``layers``: :func:`layer_fns` of ``cfg`` in decode mode, or None."""
-    ctx = dataclasses.replace(ctx, mode="decode", pos=pos)
     x = embed(params["embed"], token[:, None], cfg, ctx.shd)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    ctx = dataclasses.replace(ctx, mode="decode", pos=pos)
     x, caches = _run_layers(params, x, cfg, ctx, caches, layers)
     x = rmsnorm(x, params["final_norm"])
     return lm_logits(params["embed"], x, cfg, ctx.shd), caches

@@ -1,6 +1,6 @@
 """Serve step functions (counterpart of ``repro.train.step``
 ``make_prefill_step`` / ``make_decode_step``).  The train step, its
-regions and the optimizer wait (ROADMAP A.9).
+regions and the optimizer wait (ROADMAP A.7).
 
 Each maker builds the model's per-kind layer functions
 (:func:`~repro_torch.models.transformer.layer_fns`) once, outside the step,

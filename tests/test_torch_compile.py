@@ -178,8 +178,9 @@ def test_layer_op_passes_opcheck(mode, impl):
     op = T.layer_fns(cfg, T.Ctx(mode=mode, rwkv_impl=impl))[("rwkv", "cm")]
     x = torch.from_numpy(np.random.RandomState(3).randn(
         *tokens.shape, cfg.d_model).astype(np.float32)).to(torch.bfloat16)
+    pos = None if mode == "prefill" else torch.tensor(9, dtype=torch.int32)
     args = (T._leaves(params["layers"][1]), x,
-            [cache[1][k] for k in op._cache_keys])
+            [cache[1][k] for k in op._cache_keys], pos)
     with disable_compile():
         torch.library.opcheck(op.op, args)
 
@@ -261,10 +262,11 @@ def test_layer_op_vmap_rule_equals_a_loop(batched):
         if batched == "all" else p
     p_dims = [0] * len(p) if batched == "all" else [None] * len(p)
     with disable_compile():
-        got = torch.func.vmap(op.op, in_dims=(p_dims, 0, [0] * len(cs)))(
-            ps, xs, cs)
+        pos = torch.tensor(9, dtype=torch.int32)
+        got = torch.func.vmap(op.op, in_dims=(p_dims, 0, [0] * len(cs),
+                                              None))(ps, xs, cs, pos)
         want = [op.op([t[j] for t in ps] if batched == "all" else p, xs[j],
-                      [c[j] for c in cs]) for j in range(n)]
+                      [c[j] for c in cs], pos) for j in range(n)]
     for i, g in enumerate(got):
         assert torch.equal(g, torch.stack([w[i] for w in want]))
 

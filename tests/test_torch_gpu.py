@@ -488,3 +488,101 @@ def test_replay_batch_runs_the_field_kernels_on_card(cuda, compiled):
         "fused_axpbypz")) > 0
     err = (got - solo).abs().max().item()
     assert err <= 1e-5 * max(1.0, solo.abs().max().item())
+
+
+def test_budgeted_placer_migrates_a_demoted_operand_in_on_card(cuda):
+    """Two card operands with DEVICE hints under a budget that admits the
+    smaller: the larger is demoted to pinned host memory, migrates in for
+    the call (booked as staging bytes), the call runs on the card and its
+    result equals the unhinted run."""
+    from repro_torch.core.ledger import Ledger
+    from repro_torch.core.oversub import BudgetedPlacer, MemoryBudget
+    from repro_torch.core.regions import Executor, UnifiedPolicy, region
+    from repro_torch.core.umem import MemSpace
+    ldg = Ledger("bp_card")
+
+    @region("bp_weighted", ledger=ldg,
+            placement={0: MemSpace.DEVICE, 1: MemSpace.DEVICE})
+    def weighted(d, off):
+        return d * off.sum(0)
+    d = torch.rand(32, 32, 32, device=cuda)
+    off = torch.rand(6, 32, 32, 32, device=cuda)
+    want = Executor(UnifiedPolicy(), Ledger("bp_plain")).run(weighted, d, off)
+    budget = MemoryBudget(2 * d.numel() * 4)
+    ex = Executor(UnifiedPolicy(placer=BudgetedPlacer(budget=budget,
+                                                      device=cuda)),
+                  Ledger("bp_budget"))
+    got = ex.run(weighted, d, off)
+    assert got.device.type == "cuda"
+    assert torch.equal(got, want)
+    row = ex.ledger.regions["bp_weighted"]
+    assert row.staging_bytes == off.numel() * 4 and row.staging_s > 0
+    assert (row.device_calls, row.host_calls) == (1, 0)
+    assert budget.stats.denials == 1 and budget.stats.charged_bytes == 0
+
+
+@pytest.mark.parametrize("executor", ["sync", "async"])
+def test_budgeted_replay_on_card_equals_unbudgeted(cuda, executor):
+    """A 48^3 SIMPLE step captured on the card, replayed from pinned host
+    memory under the discrete policy with and without a budget of a quarter
+    of the state: bit for bit equal, staged in slabs, under pressure."""
+    from repro_torch.cfd.grid import Grid
+    from repro_torch.cfd.simple import (SimpleConfig, SimpleFoam,
+                                        SimpleState, init_state)
+    from repro_torch.core.oversub import MemoryBudget, workload_bytes
+    from repro_torch.core.program import AsyncExecutor
+    from repro_torch.core.regions import (DiscretePolicy, Executor,
+                                          TargetSelector, UnifiedPolicy)
+    from repro_torch.core.umem import MemSpace, tree_place
+    cfg = SimpleConfig(Grid((48, 48, 48), device=cuda), nu=0.1, inner_max=3,
+                       tol_u=0.0, tol_p=0.0)
+    sel = TargetSelector()
+    app = SimpleFoam(cfg, executor=Executor(UnifiedPolicy(selector=sel)))
+    st, _ = app.time_step(init_state(cfg))
+    prog = app.capture_step(st)
+    pinned = SimpleState(*tree_place([getattr(st, f) for f in "uvwp"],
+                                     MemSpace.HOST), st.step)
+    make = Executor if executor == "sync" else AsyncExecutor
+    want, _ = app.replay_steps(prog, pinned, 2,
+                               make(DiscretePolicy(selector=sel)))
+    budget = MemoryBudget.for_ratio(workload_bytes(pinned), 4.0)
+    got, _ = app.replay_steps(prog, pinned, 2, make(
+        DiscretePolicy(selector=sel, budget=budget)))
+    for f in "uvwp":
+        assert torch.equal(getattr(want, f), getattr(got, f)), f
+    assert budget.stats.staging_chunks > 0
+    assert budget.stats.pressure_events > 0
+    assert budget.stats.charged_bytes == 0
+
+
+def test_compiled_attention_serve_reduced_on_card(cuda, compiled):
+    """The serve entry point with an attention arch, compiled on the card:
+    replayed tokens equal the uncaptured path's (asserted inside ``main``)
+    for tinyllama and llama3.2 at reduced width, and each layer kind
+    compiles once with the decode position an input."""
+    from repro_torch.launch.serve import main
+    from repro_torch.models import transformer as T
+    for arch in ("tinyllama-1.1b", "llama3.2-3b"):
+        seq = main(["--arch", arch, "--reduced", "--prompt-len", "96",
+                    "--gen", "6"])
+        assert seq.shape == (4, 6)
+    ops = [op for op in T.LAYER_OPS.values()
+           if op.label.startswith("layer_attn") and op.stats.calls]
+    assert ops and all(op.stats.compiles == 1 for op in ops)
+
+
+def test_device_pool_on_bare_cuda_recycles_and_releases_its_budget(cuda):
+    """A pool made for ``"cuda"`` (no index) takes back the buffers it
+    handed out (their device is ``cuda:0``): a second acquire is a
+    free-list hit, and a budget it charges returns to zero."""
+    from repro_torch.core.oversub import MemoryBudget
+    from repro_torch.core.pool import DeviceBufferPool
+    budget = MemoryBudget(1 << 20)
+    pool = DeviceBufferPool(device="cuda", budget=budget)
+    buf = pool.acquire((64, 128), torch.float32)
+    assert buf.is_cuda and budget.stats.charged_bytes == buf.numel() * 4
+    pool.release(buf)
+    assert budget.stats.charged_bytes == 0 and pool.free_bytes > 0
+    again = pool.acquire((64, 128), torch.float32)
+    assert pool.stats.hits == 1 and again.data_ptr() == buf.data_ptr()
+    pool.release(again)

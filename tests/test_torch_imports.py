@@ -48,7 +48,10 @@ def test_walk_finds_the_slice():
                  "repro_torch.kernels.rwkv6_scan.kernel",
                  "repro_torch.kernels.rwkv6_scan.ref",
                  "repro_torch.train.step", "repro_torch.launch.policy",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.core.oversub",
+                 "repro_torch.models.attention", "repro_torch.models.flash",
+                 "repro_torch.configs.tinyllama_1_1b",
+                 "repro_torch.configs.llama3_2_3b"):
         assert name in MODULES
 
 
