@@ -62,16 +62,31 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    equal in every row), and of a captured PBiCGStab solve at 200^3 over 2
    right-hand sides, whose vmap rules launch K1-K4, against the solo
    replays;
-10. ``[serve-attn]``: ``tinyllama-1.1b`` at full width and depth (22
-   layers, random bf16 weights from ``--seed``), batch 4, prompt 1024, 32
+10. ``[serve-attn]``: ``tinyllama-1.1b`` at full width and the first 8
+   of its 22 layers (random bf16 weights from ``--seed``, drawn for 22
+   layers), batch 4, prompt 1024, 32
    greedy tokens through the captured programs, compiled (each attention
    layer kind compiled once), and eagerly beside it; the tokens against
    the uncaptured path; the compiled prefill (logits, every layer's k and
    v) and one decode step against the same functions run eagerly, in bf16
    and with the weights widened to f32; then ``llama3.2-3b`` at full width
-   and 4 of its 28 layers, 8 tokens, compiled, its tokens against the
-   uncaptured path;
-11. a ``kernels`` JSON line (kernels of both paths) and a ``port_status``
+   and 4 of its 28 layers and ``qwen2.5-32b`` (a QKV bias) at full width
+   and 4 of its 64 layers, 8 tokens each, compiled, their tokens against
+   the uncaptured path;
+11. ``[engine]``: ``gemma3-1b`` at full width and depth (26 layers, 5:1
+   local:global, random bf16 weights from ``--seed``) through the
+   continuous-batching engine (``repro_torch.serve.ServeEngine``: 4
+   slots, pages of 64 tokens, compiled regions) under seeded Poisson
+   traffic (16 requests, prompts of 512 and 1024 tokens, 1, 16 or 32
+   tokens each), every request's tokens held to its solo decode, with
+   tokens/s against the sequential solo decodes, per-token p50/p99,
+   first-token p50, slot occupancy, KV page high water and the first-call
+   seconds of the engine's regions; then the first 8 requests of the same
+   draw under the discrete policy, ``--offload-kv``, a device page budget
+   that spills, a ``MemoryBudget`` at ratio 2 and a total budget that
+   evicts, each held to the same oracle; then ``rwkv6-7b`` at 8 layers
+   through the engine, its prefills launching K5;
+12. a ``kernels`` JSON line (kernels of both paths) and a ``port_status``
    JSON line (every TPU kernel of the reference and whether it is ported).
 
 Each path's kernel launches are counted from 0 just before it and read
@@ -128,9 +143,19 @@ F32_PREFILL_TOL = 1e-4
 # compiles its steps several times (captured regions, the uncaptured path,
 # the batched composite), and a step's graph grows by one layer op a layer
 SERVE = dict(batch=4, prompt_len=1024, gen=32, gen_discrete=8, layers=8)
-# tinyllama-1.1b at all 22 layers; llama3.2-3b at 4 of its 28
+# tinyllama-1.1b at the first 8 of its 22 layers (drawn at 22: the init's
+# scale follows the depth), llama3.2-3b at 4 of its 28 and qwen2.5-32b (a
+# QKV bias) at 4 of its 64, for the time limit: a whole-model graph
+# compiles in about a second a layer, and [engine] needs the time
 SERVE_ATTN = dict(batch=4, prompt_len=1024, gen=32, llama_gen=8,
-                  llama_layers=4)
+                  tinyllama_layers=8, llama_layers=4, qwen_layers=4)
+# the [engine] phase: gemma3-1b at full width and depth through the
+# continuous-batching engine under seeded Poisson traffic (make_traffic's
+# arguments), then the budget and policy runs on the first `sub` requests
+# of the same draw, and rwkv6-7b at 8 of its 32 layers
+ENGINE = dict(slots=4, page_tokens=64, requests=16, rate=0.5,
+              prompt_lens=(512, 1024), gen_lens=(1, 16, 32), sub=8,
+              rwkv_layers=8, rwkv_requests=8, rwkv_gen_lens=(1, 8, 16))
 # compiled against eager tinyllama prefill and decode steps, relative to
 # max(1, max|x|).  In f32 (TF32 off) each compiled layer, fed the eager
 # layer's input, must stay within ATTN_LAYER_TOL of it: the two differ in
@@ -446,6 +471,248 @@ def envelope_err(a, b):
     b = b.float().cuda()
     err = (a - b).abs().max().item()
     return err, STEP_ENVELOPE * max(1.0, a.abs().max().item())
+
+
+def engine_phase(args, dev, stamp):
+    """``[engine]``: gemma3-1b at full width and depth, bf16, random
+    weights from ``--seed``, served through ``ServeEngine`` (4 slots,
+    pages of 64 tokens, compiled regions) under seeded Poisson traffic,
+    every request's tokens held to its solo decode; then, on the first
+    ``ENGINE["sub"]`` requests of the same draw and against the same
+    oracle, the discrete policy, ``--offload-kv``, a device page budget
+    below one parked 1024-token entry (spill), a ``MemoryBudget`` at ratio
+    2, and a total budget that evicts; then rwkv6-7b at 8 layers, whose
+    prefills run K5."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.ledger import Ledger
+    from repro_torch.core.oversub import MemoryBudget
+    from repro_torch.core.regions import Executor, StaticSelector
+    from repro_torch.kernels.rwkv6_scan import kernel as RK
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch.policy import lm_policy
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import param_count
+    from repro_torch.serve import (PagedKVCache, ServeEngine, make_traffic,
+                                   run_traffic, solo_reference)
+    from repro_torch.serve.scheduler import (batch_for_prompt,
+                                             make_engine_regions)
+    from repro_torch.serve.traffic import assert_parity
+    E = ENGINE
+    sel = StaticSelector("hopper")
+
+    def model(arch, n_layers=None):
+        cfg = get_config(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        params = T.init(g, cfg, dev)
+        n = sum(t.numel() * t.element_size()
+                for t in torch.utils._pytree.tree_leaves(params))
+        print(f"[engine] {arch}: {cfg.n_layers} layers "
+              f"({dict(collections.Counter(m for m, _ in T.layer_kinds(cfg)))})"
+              f", d_model {cfg.d_model}, {cfg.n_heads} query / "
+              f"{cfg.n_kv_heads} kv heads of {cfg.hd}, window {cfg.window}, "
+              f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.compute_dtype}; "
+              f"{param_count(T.param_specs(cfg))} params, {n / 1e9:.2f} GB "
+              f"on the card")
+        return cfg, params
+
+    def entry_bytes(cfg, max_len, true_len):
+        """Bytes of one parked batch-1 entry of ``true_len`` tokens."""
+        probe = PagedKVCache(page_tokens=E["page_tokens"], device=dev)
+        probe.commit(0, T.init_cache(cfg, 1, dev, max_len), true_len=true_len)
+        return probe.total_bytes
+
+    def serve(cfg, params, regions, reqs, max_len, what, policy=None,
+              **kv_kw):
+        """One engine run over ``reqs`` (its own warm-up first); checks no
+        plain version or eager region ran on the card."""
+        ex = Executor(policy or lm_policy("unified", cfg.memory,
+                                          selector=sel, device=dev),
+                      Ledger("engine"))
+        kv = PagedKVCache(page_tokens=E["page_tokens"], device=dev, **kv_kw)
+        engine = ServeEngine(cfg, params, ex, max_len=max_len,
+                             n_slots=E["slots"], kv=kv, device=dev,
+                             regions=regions)
+        reset_plain()
+        metrics = run_traffic(engine, reqs)
+        check_plain(f"[engine] {what}")
+        return engine, ex, kv, metrics
+
+    def oracle_of(cfg, params, engine, reqs, max_len):
+        impl = SV.prefill_rwkv_impl(
+            engine.executor, engine.regions,
+            batch_for_prompt(reqs[0].prompt, dev),
+            T.init_cache(cfg, 1, dev, max_len))
+        reset_plain()
+        out = solo_reference(cfg, params, reqs, max_len, device=dev,
+                             rwkv_impl=impl)
+        check_plain("[engine] solo oracle")
+        return out
+
+    def line(what, m, ex, kv, solo_tps=None):
+        st = kv.stats
+        srv = ex.report()["serve"]
+        vs = "" if solo_tps is None else \
+            f" against {solo_tps:.1f} tok/s sequential solo"
+        print(f"[engine] {what}: {m['requests']} requests, {m['tokens']} "
+              f"tokens in {m['wall_s'] * 1e3:.1f} ms, "
+              f"{m['tokens_per_s']:.1f} tok/s{vs}; per token p50 "
+              f"{m.get('p50_token_ms', 0.0):.2f} ms, p99 "
+              f"{m.get('p99_token_ms', 0.0):.2f} ms; first token p50 "
+              f"{m['first_token_p50_ms']:.1f} ms; slot occupancy "
+              f"{srv.get('slot_occupancy', 0.0):.3f}; KV page high water "
+              f"{st.device_high_water_bytes} B device, "
+              f"{st.total_high_water_bytes} B in all; pages spilled "
+              f"{st.pages_spilled}, fetched {st.pages_fetched}; evictions "
+              f"{st.evictions}; staging_fraction "
+              f"{ex.report()['staging_fraction']:.4f}; tokens equal to the "
+              f"solo oracle's for every request")
+
+    # gemma3-1b, full width and depth, unified
+    gcfg, gparams = model("gemma3-1b")
+    max_len = max(E["prompt_lens"]) + max(E["gen_lens"])
+    reqs = make_traffic(args.seed, E["requests"], gcfg.vocab,
+                        arrival_rate=E["rate"], prompt_lens=E["prompt_lens"],
+                        gen_lens=E["gen_lens"])
+    regions = make_engine_regions(gcfg, gparams, ledger=Ledger("engine"))
+    torch.cuda.reset_peak_memory_stats()
+    engine, ex, kv, m = serve(gcfg, gparams, regions, reqs, max_len,
+                              "gemma3-1b unified")
+    peak = torch.cuda.max_memory_allocated()
+    stamp("[engine] gemma3-1b unified run (warm-up and compiles included)")
+    oracle, solo_wall = oracle_of(gcfg, gparams, engine, reqs, max_len)
+    stamp("[engine] gemma3-1b solo oracle (its compiles included)")
+    assert_parity(reqs, oracle)
+    solo_tps = m["tokens"] / solo_wall
+    line(f"gemma3-1b unified, {E['slots']} slots, {E['requests']} requests "
+         f"at {E['rate']} a tick, prompts {E['prompt_lens']}, gens "
+         f"{E['gen_lens']}", m, ex, kv, solo_tps)
+    print(f"[compile] [engine] first call (trace, compile, run): DECODE_SLOTS "
+          + ", ".join(f"{s.first_call_s:.2f} s ({s.compiles} compiled)"
+                      for s in regions.decode_slots.compile_stats.values())
+          + "; SLOT_ADMIT " + ", ".join(
+              f"{s.first_call_s:.2f} s ({s.compiles} compiled)"
+              for s in regions.slot_admit.compile_stats.values())
+          + "; prefill capture by prompt length " + ", ".join(
+              f"{L}: {t:.2f} s" for L, t in
+              sorted(engine.prefill_capture_s.items()))
+          + "; PREFILL " + ", ".join(
+              f"{s.first_call_s:.2f} s ({s.compiles} compiled)"
+              for s in regions.serve.prefill.compile_stats.values())
+          + f"; peak device memory {peak / 1e9:.2f} GB")
+    print(f"[engine] serve ledger section: "
+          f"{json.dumps(ex.report()['serve'])}")
+    if m["tokens"] != sum(r.gen for r in reqs):
+        raise AssertionError("[engine] token count differs from the draw")
+    del engine, ex, kv
+
+    # the same model on the first `sub` requests, held to the same oracle
+    def sub():
+        return make_traffic(args.seed, E["sub"], gcfg.vocab,
+                            arrival_rate=E["rate"],
+                            prompt_lens=E["prompt_lens"],
+                            gen_lens=E["gen_lens"])
+
+    one = entry_bytes(gcfg, max_len, max(E["prompt_lens"]))
+    full = entry_bytes(gcfg, max_len, max_len)
+    runs = [
+        ("discrete", dict(policy=lm_policy("discrete", gcfg.memory,
+                                           selector=sel, device=dev))),
+        ("offload-kv", dict(policy=lm_policy(
+            "unified", gcfg.memory, placer=SV.offload_kv_cache(device=dev),
+            selector=sel, device=dev))),
+        ("spill", dict(device_budget_bytes=one - 1)),
+        ("ratio 2", dict(budget=MemoryBudget.for_ratio(
+            full * E["slots"], 2.0, name="kv"))),
+        ("evict", dict(total_budget_bytes=one)),
+    ]
+    for what, kw in runs:
+        reqs_s = sub()
+        torch.cuda.reset_peak_memory_stats()
+        engine, ex, kv, m = serve(gcfg, gparams, regions, reqs_s, max_len,
+                                  f"gemma3-1b {what}", **kw)
+        assert_parity(reqs_s, oracle)
+        line(f"gemma3-1b {what}, first {E['sub']} requests", m, ex, kv)
+        rep = ex.report()
+        staged = sum(r.staging_bytes for r in ex.ledger.regions.values())
+        if what == "discrete":
+            print(f"[engine] discrete: staging_fraction "
+                  f"{rep['staging_fraction']:.4f} ({rep['staging_s']:.4f} s, "
+                  f"{staged / 1e9:.3f} GB staged)")
+            if not rep["staging_fraction"] > 0:
+                raise AssertionError("[engine] discrete staged nothing")
+        if what == "offload-kv":
+            print(f"[engine] offload-kv: {staged / 1e9:.3f} GB of k/v copied "
+                  f"in for calls on the card (booked as staging, "
+                  f"{rep['staging_s']:.4f} s, staging_fraction "
+                  f"{rep['staging_fraction']:.4f}); k/v leaves re-homed to "
+                  f"{ex.policy.placer.kv_space.value} at every region "
+                  f"boundary")
+            if not staged > 0:
+                raise AssertionError("[engine] offload-kv migrated nothing in")
+        if what == "spill":
+            print(f"[engine] spill: device page budget {one - 1} B, below one "
+                  f"parked {max(E['prompt_lens'])}-token entry ({one} B): "
+                  f"{kv.stats.pages_spilled} pages spilled, "
+                  f"{kv.stats.pages_fetched} fetched back")
+            if not kv.stats.pages_spilled > 0 < kv.stats.pages_fetched:
+                raise AssertionError("[engine] the spill run spilled nothing")
+        if what == "ratio 2":
+            b = kw["budget"]
+            print(f"[engine] ratio 2: budget {b.limit_bytes} B (footprint "
+                  f"{full * E['slots']} B: {E['slots']} slots x one parked "
+                  f"{max_len}-token entry); budget high water "
+                  f"{b.stats.high_water_bytes} B, "
+                  f"{b.stats.pressure_events} pressure events, pages "
+                  f"spilled {kv.stats.pages_spilled}; "
+                  f"torch.cuda.max_memory_allocated() "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if what == "evict":
+            srv = rep["serve"]
+            print(f"[engine] evict: total page budget {one} B: "
+                  f"{kv.stats.evictions} evictions, "
+                  f"{srv['prefills'] - E['sub']} re-prefills")
+            if not kv.stats.evictions > 0:
+                raise AssertionError("[engine] the evict run evicted nothing")
+        stamp(f"[engine] gemma3-1b {what}")
+        del engine, ex, kv
+    print("[compile] [engine] gemma3-1b regions, first call and graphs "
+          "kept: " + compile_rows([regions.decode_slots, regions.slot_admit,
+                                   regions.serve.prefill,
+                                   regions.serve.kv_append]))
+    del gparams, regions
+
+    stamp("engine gemma3-1b")
+
+    # rwkv6-7b at 8 layers: K5 runs in the engine's prefills
+    rcfg, rparams = model("rwkv6-7b", E["rwkv_layers"])
+    rmax = max(E["prompt_lens"]) + max(E["rwkv_gen_lens"])
+    rreqs = make_traffic(args.seed, E["rwkv_requests"], rcfg.vocab,
+                         arrival_rate=E["rate"], prompt_lens=E["prompt_lens"],
+                         gen_lens=E["rwkv_gen_lens"])
+    rregions = make_engine_regions(rcfg, rparams, ledger=Ledger("engine"))
+    # K5 counted from 0 over the run: the warm-up's and the captures'
+    # prefills launch it too
+    for k in RK.LAUNCHES:
+        RK.LAUNCHES[k] = 0
+    engine, ex, kv, m = serve(rcfg, rparams, rregions, rreqs, rmax,
+                              "rwkv6-7b")
+    k5 = RK.LAUNCHES["rwkv6_scan"]
+    stamp("[engine] rwkv6-7b run")
+    oracle, solo_wall = oracle_of(rcfg, rparams, engine, rreqs, rmax)
+    assert_parity(rreqs, oracle)
+    line(f"rwkv6-7b ({rcfg.n_layers} layers, hopper) unified, "
+         f"{E['slots']} slots, {E['rwkv_requests']} requests, gens "
+         f"{E['rwkv_gen_lens']}", m, ex, kv, m["tokens"] / solo_wall)
+    impl_counts = ex.ledger.regions["PREFILL"].impl_counts
+    print(f"[engine] rwkv6-7b: K5 launches over the engine run {k5} (warm-up"
+          f" and captures included; {rcfg.n_layers} a prefill); measured "
+          f"PREFILL impl_counts {impl_counts}")
+    if k5 <= 0:
+        raise AssertionError("[engine] rwkv6-7b's engine run launched no K5")
+    del engine, ex, kv, rparams, rregions
+    return k5
 
 
 def main(argv=None):
@@ -1528,14 +1795,22 @@ def main(argv=None):
     AB, AP, AG = SERVE_ATTN["batch"], SERVE_ATTN["prompt_len"], \
         SERVE_ATTN["gen"]
 
-    def attn_model(arch, n_layers=None):
-        """(cfg, random params from --seed on the card, prompts)."""
+    def attn_model(arch, n_layers=None, keep=None):
+        """(cfg, random params from --seed on the card, prompts).  With
+        ``keep`` the model is drawn at ``n_layers`` and its first ``keep``
+        layers kept: the init's scale is 1/sqrt(layers) (the reference's
+        law for stacked weights), so a model cut this way keeps the deep
+        model's weights, and with them the compiled-vs-eager envelopes
+        measured at that depth."""
         cfg_a = get_config(arch)
         if n_layers is not None:
             cfg_a = dataclasses.replace(cfg_a, n_layers=n_layers)
         ga = torch.Generator(device=dev).manual_seed(args.seed)
         t0 = time.perf_counter()
         p_a = T.init(ga, cfg_a, dev)
+        if keep is not None:
+            cfg_a = dataclasses.replace(cfg_a, n_layers=keep)
+            p_a["layers"] = p_a["layers"][:keep]
         torch.cuda.synchronize()
         t_init_a = time.perf_counter() - t0
         prompts_a = torch.randint(0, cfg_a.vocab, (AB, AP), generator=ga,
@@ -1692,8 +1967,9 @@ def main(argv=None):
                                      f"{op.label} {op.stats.compiles}"
                                      for op in ops))
 
-    # tinyllama-1.1b at full width and depth, compiled, eagerly beside it
-    acfg, aparams, abatch = attn_model("tinyllama-1.1b")
+    # tinyllama-1.1b at full width, compiled, eagerly beside it
+    acfg, aparams, abatch = attn_model("tinyllama-1.1b",
+                                       keep=SERVE_ATTN["tinyllama_layers"])
     reset_plain()
     seq_a, ta_pre, ta_dec, peak_a, attn_regions, warm_a = attn_serve(
         acfg, aparams, abatch, AG)
@@ -1763,7 +2039,32 @@ def main(argv=None):
           f"uncaptured path's; each attention layer kind compiled once")
     del lparams
 
+    # qwen2.5-32b at full width (QKV bias, untied head, rope_theta 1e6)
+    qcfg, qparams, qbatch = attn_model("qwen2.5-32b",
+                                       SERVE_ATTN["qwen_layers"])
+    reset_plain()
+    seq_q, tq_pre, tq_dec, peak_q, _, warm_q = attn_serve(
+        qcfg, qparams, qbatch, SERVE_ATTN["llama_gen"])
+    if compiles_of(REGIONS) != warm_q:
+        raise AssertionError("[serve-attn] qwen2.5-32b: a region recompiled "
+                             "after its warm-up")
+    attn_oracle(qcfg, qparams, qbatch, SERVE_ATTN["llama_gen"], seq_q)
+    check_plain("[serve-attn] qwen2.5-32b")
+    attn_ops_compiled_once()
+    print(f"[serve-attn] qwen2.5-32b unified {AB}x{AP} prompt, "
+          f"{SERVE_ATTN['llama_gen']} tokens, compiled: prefill "
+          f"{tq_pre * 1e3:.1f} ms; decode {SERVE_ATTN['llama_gen'] - 1} steps "
+          f"in {tq_dec * 1e3:.1f} ms "
+          f"({tq_dec / (SERVE_ATTN['llama_gen'] - 1) * 1e3:.2f} ms/step); "
+          f"peak device memory {peak_q / 1e9:.2f} GB; tokens equal to the "
+          f"uncaptured path's; each attention layer kind compiled once")
+    del qparams
+
     stamp("serve-attn")
+
+    # -- 11. [engine]: continuous batching under Poisson traffic ----------
+    engine_k5 = engine_phase(args, dev, stamp)
+    stamp("engine")
 
     # every compiled executable of the run: at most two recompiles
     worst = max([(st.recompiles, r.name) for r in REGIONS
@@ -1779,7 +2080,7 @@ def main(argv=None):
         raise AssertionError(f"region {worst[1]} recompiled {worst[0]} times")
 
 
-    # -- 11. the kernels of both paths, and the port's status ------------
+    # -- 12. the kernels of both paths, and the port's status ------------
     print(json.dumps({"kernels": [records[k]
                                   for k in on_path + ("rwkv6_scan",)]}))
     status = [
@@ -1794,7 +2095,8 @@ def main(argv=None):
     status.append({"tpu_kernel": "K5", "replaces": REPLACES["rwkv6_scan"],
                    "status": "ported", "variant": "hopper",
                    "port": "rwkv6_scan",
-                   "launches_serve_path": serve_counts["rwkv6_scan"]})
+                   "launches_serve_path": serve_counts["rwkv6_scan"],
+                   "launches_engine_path": engine_k5})
     print(json.dumps({"port_status": status}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -4,8 +4,8 @@ A copy of the JAX package's ``repro.configs.base`` (plain dataclasses):
 every architecture is a declarative :class:`ModelConfig` that
 ``repro_torch.models.transformer`` turns into a layer program.  Layer
 kinds are those of the reference (``attn``, ``attn_local``, ``attn_enc``,
-``attn_xdec``, ``rglru``, ``rwkv``); the port runs ``rwkv`` and
-``attn`` so far (ROADMAP A.5).
+``attn_xdec``, ``rglru``, ``rwkv``); the port runs ``rwkv``, ``attn``
+and ``attn_local`` so far (ROADMAP A.5).
 """
 from __future__ import annotations
 

@@ -2,9 +2,11 @@
 
 Each ``repro_torch/configs/<id>.py`` exposes ``CONFIG``; ``--arch <id>``
 resolves through :func:`get_config`.  Only archs whose mixers the port
-runs are here (``rwkv6-7b``, ``tinyllama-1.1b``, ``llama3.2-3b``); every
-other arch of the JAX package raises ``NotImplementedError`` until its
-mixers are ported (ROADMAP A.5).
+runs are here (``rwkv6-7b``; ``tinyllama-1.1b``, ``llama3.2-3b`` and
+``qwen2.5-32b``, global attention, the last with a QKV bias;
+``gemma3-1b``, local and global attention); every other arch of the JAX
+package raises ``NotImplementedError`` until its mixers are ported
+(ROADMAP A.5).
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 
-ARCH_IDS = ("rwkv6_7b", "tinyllama_1_1b", "llama3_2_3b")
+ARCH_IDS = ("rwkv6_7b", "tinyllama_1_1b", "llama3_2_3b", "gemma3_1b",
+            "qwen2_5_32b")
 
 _cache: Dict[str, ModelConfig] = {}
 

@@ -53,6 +53,11 @@ class Ledger:
     def __init__(self, name: str = "default"):
         self.name = name
         self.regions: Dict[str, RegionRecord] = {}
+        # serving-engine accounting (repro_torch.serve): scheduler
+        # decisions land here, so coverage_report() carries the serve story
+        # next to the region rows it is made of; gauges keep their peak
+        self.serve_counters: Dict[str, float] = {}
+        self.serve_gauges: Dict[str, float] = {}
         # pools attached for byte-level accounting (paper C4): their live
         # PoolStats are snapshotted into every coverage_report()
         self._pools: Dict[str, object] = {}
@@ -102,6 +107,16 @@ class Ledger:
         """Store a calibrated TARGET_CUT_OFF with the region it governs."""
         self.region(name).cutoff = cutoff
 
+    def serve_record(self, event: str, n: float = 1) -> None:
+        """Count one scheduler decision (``admitted``, ``retired``,
+        ``evicted``, ...) into the report's ``serve`` section."""
+        self.serve_counters[event] = self.serve_counters.get(event, 0) + n
+
+    def serve_gauge(self, key: str, value: float) -> None:
+        """Record a level (slot occupancy, KV page high-water bytes); the
+        ledger keeps the largest value seen."""
+        self.serve_gauges[key] = max(self.serve_gauges.get(key, value), value)
+
     def attach_pool(self, name: str, pool) -> None:
         """Surface a pool's PoolStats in coverage_report() (``pools``
         section).  Re-attaching under the same name replaces."""
@@ -116,6 +131,16 @@ class Ledger:
             r.device_compute_s = r.host_compute_s = 0.0
             r.host_elems = r.device_elems = 0
             r.impl_counts = {}          # cutoff/calibrated_variants persist
+        self.serve_counters.clear()     # per-run accounting, like timings;
+        self.serve_gauges.clear()       # attached pools persist
+
+    def clear(self) -> None:
+        """Drop every region row, the serve accounts and the attached
+        pools."""
+        self.regions.clear()
+        self.serve_counters.clear()
+        self.serve_gauges.clear()
+        self._pools.clear()
 
     # ------------------------------------------------------------------
     def coverage_report(self) -> dict:
@@ -142,6 +167,8 @@ class Ledger:
             for winner in cells.values():
                 variant_wins[winner] = variant_wins.get(winner, 0) + 1
         extra: Dict[str, dict] = {}
+        if self.serve_counters or self.serve_gauges:
+            extra["serve"] = {**self.serve_counters, **self.serve_gauges}
         if self._pools:
             pools = {}
             for pname, pool in self._pools.items():

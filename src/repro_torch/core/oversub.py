@@ -17,9 +17,11 @@ failing.  Its consumers:
   bigger than the budget streams through it in slabs;
 * :class:`BudgetedPlacer` demotes ``MemSpace.DEVICE`` placement hints to
   host space while the budget lacks headroom;
-* still to port: the paged KV store (``PagedKVCache``, ROADMAP A.6), the
-  MoE expert pager (``ExpertPager``, A.5.5) and the sharded scatter of
-  ``ShardExecutor`` (A.9).
+* :class:`~repro_torch.serve.paged_kv.PagedKVCache` mirrors its
+  device-resident KV page bytes into it and spills LRU entries to host
+  memory while it is over the limit (serve's ``--kv-oversub-ratio``);
+* still to port: the MoE expert pager (``ExpertPager``, ROADMAP A.5.5)
+  and the sharded scatter of ``ShardExecutor`` (A.9).
 
 The budget stays logical on the card, as in the reference: nothing caps
 what CUDA allocates.  Chunking bounds the copy granule, not what the pool

@@ -42,7 +42,10 @@ compiled CUDA region cannot take, so for a call that runs on the card the
 executor copies each leaf that placement moved off the card back in for
 that call alone, as managed memory migrates a page on touch, and books
 the copy as ``staging_s``/``staging_bytes`` on the call's row.  The call
-runs on the card, and the leaf stays demoted.
+runs on the card, and the leaf stays demoted.  A placer may keep other
+leaves in host memory between calls (serve's ``KVCachePlacer`` keeps the
+k/v cache there): :meth:`Placer.migrations` names the leaves a call on
+the card copies in, booked the same way.
 
 These two are the places where the port's accounting departs from the
 reference's.
@@ -740,6 +743,17 @@ class Placer:
                 args[key] = self._place_tree(args[key], space)
         return tuple(args), kwargs
 
+    def migrations(self, region: Region, unplaced, placed) -> list:
+        """``(leaf index, device)`` of each leaf of the placed call
+        (``pytree`` leaf order of ``(args, kwargs)``) that a call run on
+        the card copies in for itself: here, each leaf the region's hints
+        moved off the card goes back to its device (the module
+        docstring)."""
+        if not region.arg_spaces:
+            return []
+        homes = pytree.tree_leaves(unplaced)
+        return [(i, homes[i].device) for i in _demoted(unplaced, placed)]
+
     def place_result(self, region: Region, out):
         if not (self.honor_hints and region.result_space is not None):
             return out
@@ -999,14 +1013,13 @@ class Executor:
             staged_in = (args, kwargs)
             staging_s += s
             staging_b += b
-        elif tgt != "host" and r.arg_spaces:
-            # leaves demoted off the card migrate in for this call alone
-            # (the module docstring)
-            demoted = _demoted(unplaced, (args, kwargs))
-            if demoted:
+        elif tgt != "host":
+            # leaves that placement keeps off the card migrate in for this
+            # call alone (the module docstring)
+            moves = pol.placer.migrations(r, unplaced, (args, kwargs))
+            if moves:
                 t0 = time.perf_counter()
-                (args, kwargs), b = self._migrate_demoted(
-                    unplaced, (args, kwargs), demoted)
+                (args, kwargs), b = self._migrate_in((args, kwargs), moves)
                 synchronize()
                 staging_s += time.perf_counter() - t0
                 staging_b += b
@@ -1043,15 +1056,14 @@ class Executor:
         return out
 
     @staticmethod
-    def _migrate_demoted(unplaced, placed, demoted):
-        """``placed`` with each leaf at index ``demoted`` copied back to its
-        device in ``unplaced``; returns (tree, bytes copied)."""
+    def _migrate_in(placed, moves):
+        """``placed`` with each leaf of ``moves`` (``(leaf index,
+        device)``) copied to that device; returns (tree, bytes copied)."""
         leaves, spec = pytree.tree_flatten(placed)
-        homes = pytree.tree_leaves(unplaced)
         moved = 0
-        for i in demoted:
+        for i, device in moves:
             moved += umem.nbytes(leaves[i])
-            leaves[i] = leaves[i].to(homes[i].device, non_blocking=True)
+            leaves[i] = leaves[i].to(device, non_blocking=True)
         return pytree.tree_unflatten(leaves, spec), moved
 
     def report(self) -> dict:

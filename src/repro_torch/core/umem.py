@@ -75,7 +75,10 @@ def place(x, space: MemSpace, device: Any = "cuda"):
     if space is MemSpace.DEVICE:
         return x.to(resolve_device(device))
     if space is MemSpace.HOST and can_pin():
-        return x if x.is_pinned() else x.cpu().pin_memory()
+        if x.is_pinned():
+            return x
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return out.copy_(x)                 # one copy, straight into pages
     return x.cpu()
 
 
@@ -127,6 +130,24 @@ def tree_place_budgeted(tree, budget, device: Any = "cuda",
         ok = budget.admit(n) if charge else budget.consult(n)
         return place(x, device_space if ok else spill, device)
     return tree_map(maybe, tree)
+
+
+def canonical(x):
+    """``x`` with the strides of a fresh tensor of its shape, size-1 axes
+    included (a copy only where they differ; anything but a tensor as it
+    is).  ``Tensor.contiguous`` keeps any stride on a size-1 axis, and a
+    compiled executable guards on every stride, so two callers passing
+    one shape in two layouts would run two graphs, which may round
+    differently."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    want, acc = [], 1
+    for n in reversed(x.shape):
+        want.append(acc)
+        acc *= max(n, 1)
+    if x.stride() == tuple(reversed(want)):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def nbytes(x) -> int:

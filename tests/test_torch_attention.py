@@ -1,14 +1,17 @@
 """The attention slice of the port (``repro_torch.models.attention``,
 ``models.flash``'s forward, ``layers.apply_rope``, the ``("attn",
-"dense")`` layer kind and the tinyllama / llama3.2 serve path), held
-against the JAX package on the same numpy inputs.
+"dense")`` and ``("attn_local", "dense")`` layer kinds and the
+tinyllama / llama3.2 / gemma3 / qwen2.5 serve path), held against the JAX
+package on the same numpy inputs.
 
 Tolerances:
 * each function in float32 within ``1e-5 * max(1, max|ref|)`` of the
   reference's (the two differ in the order of f32 sums), on a ragged last
   query chunk, a sliding window with a banded KV strip, and grouped query
   heads (G > 1);
-* reduced tinyllama-1.1b and llama3.2-3b prefill and decode, the
+* reduced tinyllama-1.1b, llama3.2-3b, gemma3-1b (local layers with a
+  ring of ``window`` = 16 slots, outgrown by the 24-token prompt) and
+  qwen2.5-32b (a QKV bias) prefill and decode, the
   reference's weights carried over by ``params_from_jax``, under ``Ctx()``
   (the flash forward) and ``Ctx(flash=False)`` (query chunks): in float32
   every logit and every cache leaf within ``1e-4 * max(1, max|ref|)``, the
@@ -49,7 +52,7 @@ from repro_torch.models.layers import apply_rope
 from repro_torch.models.params import param_count
 from repro_torch.train import step as S
 
-ARCHS = ("tinyllama-1.1b", "llama3.2-3b")
+ARCHS = ("tinyllama-1.1b", "llama3.2-3b", "gemma3-1b", "qwen2.5-32b")
 
 
 @pytest.fixture(autouse=True)
@@ -304,11 +307,16 @@ def test_attn_prefill_and_decode_match_jax(arch, ctx_kw):
 B, PROMPT, GEN = 2, 24, 6
 
 
-def _decode_both(arch, dtype, ctx_kw, teacher_forced):
+def _decode_both(arch, dtype, ctx_kw, teacher_forced, depth=None):
     """Prefill + GEN-1 decode steps on both sides from the reference's
     weights; returns per-step (reference, port) logits and tokens, and the
-    final caches (port layout)."""
+    final caches (port layout).  ``depth="cycle"`` cuts the reduced
+    config to one layer cycle, and to no fewer than two layers."""
     jcfg, cfg = _configs(arch, dtype)
+    if depth == "cycle":
+        n = max(2, len(cfg.layer_cycle))
+        jcfg, cfg = (dataclasses.replace(c, n_layers=min(c.n_layers, n))
+                     for c in (jcfg, cfg))
     jp = JT.init(jax.random.PRNGKey(0), jcfg)
     params = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
     prompts = np.random.RandomState(0).randint(
@@ -345,20 +353,32 @@ def test_prefill_and_decode_match_jax_float32(arch, ctx_kw):
         within(got, want, 1e-4)
     for want, got in tokens:
         np.testing.assert_array_equal(got, want)
-    assert len(tcache) == len(jcache) == 2
-    for jl, tl in zip(jcache, tcache):
+    kinds = T.layer_kinds(reduced(get_config(arch)))
+    assert len(tcache) == len(jcache) == len(kinds)
+    window = reduced(get_config(arch)).window
+    for jl, tl, (mixer, _) in zip(jcache, tcache, kinds):
         assert set(tl) == {"k", "v", "pos"}
         for key in ("k", "v"):
             within(tl[key], jl[key], 1e-4)
         assert torch.equal(tl["pos"], jl["pos"])
-        assert tl["pos"].tolist() == list(range(PROMPT + GEN - 1)) + [-1]
+        if mixer == "attn":
+            assert tl["pos"].tolist() == list(range(PROMPT + GEN - 1)) + [-1]
+        else:          # the ring: position p in slot p % window
+            written = range(PROMPT + GEN - 1 - window, PROMPT + GEN - 1)
+            assert sorted(tl["pos"].tolist()) == list(written)
+            assert all(tl["pos"][p % window] == p for p in written)
 
 
 @pytest.mark.parametrize("ctx_kw", [{}, {"flash": False}])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_jax_bfloat16(arch, ctx_kw):
+    """At the depth of one layer cycle, as the two-layer reduced llamas
+    (gemma3's cycle: 5 local layers and a global one).  The difference
+    grows with depth: at gemma3's 14 reduced layers it reaches 0.19 of
+    k/v's largest magnitude and 0.13 of the logits' (ROADMAP C.2)."""
     logits, _, jcache, tcache = _decode_both(arch, "bfloat16", ctx_kw,
-                                             teacher_forced=True)
+                                             teacher_forced=True,
+                                             depth="cycle")
     for want, got in logits:
         within(got, want, 0.15)
     for jl, tl in zip(jcache, tcache):
@@ -380,6 +400,55 @@ def test_full_configs_equal_the_reference():
             dataclasses.asdict(j_get_config(arch))
     cfg = get_config("tinyllama-1.1b")
     assert 1.09e9 < param_count(T.param_specs(cfg)) < 1.11e9
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen2.5-32b"])
+def test_new_configs_equal_the_reference_full_and_reduced(arch):
+    """The two configs this slice adds, field for field, at full size and
+    reduced, with their layer plans and parameter counts."""
+    cfg, jcfg = get_config(arch), j_get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(reduced(cfg)) == \
+        dataclasses.asdict(j_reduced(jcfg))
+    assert T.layer_plan(cfg) == JT.layer_plan(jcfg)
+    assert param_count(T.param_specs(cfg)) == sum(
+        int(np.prod(s.shape)) for s in jax.tree.leaves(
+            JT.param_specs(jcfg),
+            is_leaf=lambda x: hasattr(x, "shape") and hasattr(x, "axes")))
+
+
+def test_gemma3_local_layers_keep_a_ring_of_window_slots():
+    cfg = get_config("gemma3-1b")
+    assert 0.99e9 < param_count(T.param_specs(cfg)) < 1.01e9
+    kinds = T.layer_kinds(cfg)
+    assert kinds.count(("attn_local", "dense")) == 22
+    assert kinds.count(("attn", "dense")) == 4
+    cache = T.init_cache(cfg, 1, "meta", 1056)
+    for (mixer, _), s in zip(kinds, cache):
+        slots = 512 if mixer == "attn_local" else 1056
+        assert s["k"].shape == (1, slots, 1, 256) and s["pos"].shape == \
+            (slots,)
+    rcfg = reduced(cfg)
+    ops = T.layer_fns(rcfg, T.Ctx(mode="decode"))
+    assert set(ops) == {("attn", "dense"), ("attn_local", "dense"), "head"}
+    assert ops[("attn", "dense")] is not ops[("attn_local", "dense")]
+
+
+def test_convert_carries_the_qkv_bias_leaves():
+    jcfg, cfg = _configs("qwen2.5-32b")
+    jp = JT.init(jax.random.PRNGKey(3), jcfg)
+    # the reference initialises biases to zeros: give them values
+    jp = jax.tree_util.tree_map_with_path(
+        lambda path, a: a + 0.25 if getattr(path[-1], "key", None) in
+        ("bq", "bk", "bv") else a, jp)
+    params = params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    jlayers = T.layers_of(cfg, jax.tree.map(np.asarray, jp))
+    for tl, jl in zip(params["layers"], jlayers):
+        for key in ("bq", "bk", "bv"):
+            np.testing.assert_array_equal(tl["mixer"][key].numpy(),
+                                          jl["mixer"][key])
+            assert (tl["mixer"][key] == 0.25).all()
+    assert len(params["layers"]) == cfg.n_layers
 
 
 def test_cache_layout_and_refusals():
@@ -432,6 +501,39 @@ def test_attention_layer_op_passes_opcheck(mode, flash):
     args = (T._leaves(params["layers"][1]), x,
             [cache[1][k] for k in op._cache_keys], pos)
     torch.library.opcheck(op.op, args)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen2.5-32b"])
+def test_rows_and_head_ops_pass_opcheck(arch):
+    """The rows op (a vmap rule's one node for all rows) and the head op:
+    schema, fake implementation and the eager body; the rows op equals one
+    solo call per row, and the head the inline final norm and logits."""
+    cfg = reduced(get_config(arch))
+    params = T.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    ops = T.layer_fns(cfg, T.Ctx(mode="decode"))
+    op, head = ops[("attn", "dense")], ops["head"]
+    layer = next(i for i, (m, _) in enumerate(T.layer_kinds(cfg))
+                 if m == "attn")
+    cache = T.init_cache(cfg, 3, "cpu", 8)[layer]
+    x = torch.from_numpy(rand(3, 1, 1, cfg.d_model, seed=4)).to(
+        torch.bfloat16)
+    # three rows, each a batch-1 cache
+    rows = [T._leaves(params["layers"][layer]), x,
+            [(cache[k][None].expand(3, -1) if k == "pos"
+              else cache[k][:, None]).contiguous() for k in op._cache_keys],
+            torch.tensor([2, 5, 7], dtype=torch.int32)]
+    torch.library.opcheck(op.rows, rows)
+    got = op.rows(*rows)
+    for i in range(3):
+        want = op.op(rows[0], rows[1][i], [c[i] for c in rows[2]],
+                     rows[3][i])
+        for g, w in zip(got, want):
+            assert torch.equal(g[i], w)
+    hx = x[:, 0]
+    hargs = ([params["final_norm"], params["embed"]["tok"] if
+              cfg.tie_embeddings else params["embed"]["head"]], hx, [], None)
+    torch.library.opcheck(head.op, hargs)
+    assert torch.equal(head(params, hx), T._head(params, hx, cfg, T.Ctx()))
 
 
 def test_attention_layer_ops_are_made_once_per_context():

@@ -586,3 +586,94 @@ def test_device_pool_on_bare_cuda_recycles_and_releases_its_budget(cuda):
     again = pool.acquire((64, 128), torch.float32)
     assert pool.stats.hits == 1 and again.data_ptr() == buf.data_ptr()
     pool.release(again)
+
+
+def test_compiled_engine_reduced_gemma3_on_card_equals_solo(cuda, compiled):
+    """Reduced gemma3-1b (local and global layers) through the
+    continuous-batching engine on the card, compiled, with a device page
+    budget that spills: every request's tokens equal its solo decode's."""
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.ledger import Ledger
+    from repro_torch.core.regions import Executor, StaticSelector
+    from repro_torch.launch.policy import lm_policy
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (PagedKVCache, ServeEngine, make_traffic,
+                                   run_traffic, solo_reference)
+    from repro_torch.serve.traffic import assert_parity
+    cfg = reduced(get_config("gemma3-1b"))
+    params = T.init(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    reqs = make_traffic(3, 6, cfg.vocab, arrival_rate=2.0,
+                        prompt_lens=(12, 40), gen_lens=(1, 6, 10))
+    ex = Executor(lm_policy("unified", cfg.memory,
+                            selector=StaticSelector("hopper"), device=cuda),
+                  Ledger("engine_card"))
+    kv = PagedKVCache(page_tokens=8, device_budget_bytes=1, device=cuda)
+    engine = ServeEngine(cfg, params, ex, max_len=50, n_slots=2, kv=kv,
+                         device=cuda)
+    run_traffic(engine, reqs)
+    oracle, _ = solo_reference(cfg, params, reqs, 50, device=cuda,
+                               rwkv_impl="hopper")
+    assert_parity(reqs, oracle)
+    assert kv.stats.pages_spilled > 0 and kv.stats.pages_fetched > 0
+    assert engine.slot_cache[0]["k"].is_cuda
+
+
+def test_spilled_pages_go_to_pinned_host_and_come_back_bitwise(cuda):
+    """A page set spilled under a one-byte device budget sits in pinned
+    host memory, its device pages back in the pool, and returns to the
+    card bit for bit at gather."""
+    from repro_torch.serve import PagedKVCache
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cache = [{"k": torch.randn(1, 40, 2, 16, generator=g, device=cuda,
+                               dtype=torch.bfloat16),
+              "v": torch.randn(1, 40, 2, 16, generator=g, device=cuda,
+                               dtype=torch.bfloat16),
+              "pos": torch.arange(40, dtype=torch.int32, device=cuda)}]
+    kv = PagedKVCache(page_tokens=8, device_budget_bytes=1, device=cuda)
+    kv.commit(0, cache, true_len=40)
+    entry = kv._entries[0]
+    pages = [p for rec in entry.leaves if rec[0] == "page" for p in rec[1]]
+    assert entry.on_host and len(pages) == 10
+    assert all(p.device.type == "cpu" and p.is_pinned() for p in pages)
+    assert kv.pool.stats.bytes_in_use == 0 and kv.pool.free_bytes > 0
+    back = kv.gather(0)
+    torch.cuda.synchronize()
+    for key in ("k", "v", "pos"):
+        assert back[0][key].is_cuda
+        assert torch.equal(back[0][key], cache[0][key]), key
+    assert kv.stats.pages_fetched == 10
+
+
+def test_offload_kv_on_card_migrates_in_for_a_compiled_region(cuda,
+                                                              compiled):
+    """``--offload-kv`` on the card: a compiled region fed k/v leaves that
+    live in pinned host memory gets them copied in for the call (the
+    executor's migrate-in, booked as staging), runs on the card, and its
+    k/v results are re-homed to pinned host memory; values unchanged."""
+    from repro_torch.core.ledger import Ledger
+    from repro_torch.core.regions import Executor, UnifiedPolicy, region
+    from repro_torch.launch.serve import offload_kv_cache
+    ldg = Ledger("offload_card")
+
+    @region("kv_scale", ledger=ldg)
+    def kv_scale(cache, s):
+        return [{**c, "k": c["k"] * s, "v": c["v"] + s} for c in cache]
+    g = torch.Generator(device=cuda).manual_seed(2)
+    cache = [{"k": torch.randn(1, 64, 2, 64, generator=g, device=cuda),
+              "v": torch.randn(1, 64, 2, 64, generator=g, device=cuda),
+              "pos": torch.arange(64, dtype=torch.int32, device=cuda)}]
+    s = torch.tensor(2.0, device=cuda)
+    want = Executor(UnifiedPolicy(), Ledger("plain")).run(kv_scale, cache, s)
+    ex = Executor(UnifiedPolicy(placer=offload_kv_cache(device=cuda)),
+                  Ledger("offload"))
+    host = ex.policy.placer.place_result(kv_scale, cache)  # re-homed once
+    assert host[0]["k"].is_pinned() and host[0]["pos"].is_cuda
+    got = ex.run(kv_scale, host, s)
+    assert got[0]["k"].device.type == "cpu" and got[0]["k"].is_pinned()
+    assert got[0]["pos"].is_cuda
+    for key in ("k", "v", "pos"):
+        assert torch.equal(got[0][key].to(cuda), want[0][key]), key
+    row = ex.ledger.regions["kv_scale"]
+    assert row.staging_bytes == 2 * cache[0]["k"].numel() * 4
+    assert row.staging_s > 0 and (row.device_calls, row.host_calls) == (1, 0)

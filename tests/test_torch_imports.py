@@ -51,7 +51,12 @@ def test_walk_finds_the_slice():
                  "repro_torch.launch.serve", "repro_torch.core.oversub",
                  "repro_torch.models.attention", "repro_torch.models.flash",
                  "repro_torch.configs.tinyllama_1_1b",
-                 "repro_torch.configs.llama3_2_3b"):
+                 "repro_torch.configs.llama3_2_3b",
+                 "repro_torch.configs.gemma3_1b",
+                 "repro_torch.configs.qwen2_5_32b",
+                 "repro_torch.serve", "repro_torch.serve.paged_kv",
+                 "repro_torch.serve.scheduler",
+                 "repro_torch.serve.traffic"):
         assert name in MODULES
 
 
