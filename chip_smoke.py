@@ -6,7 +6,7 @@
 Run from the root of a checkout.  Phases, each printing its own lines:
 
 1. the card (``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
-   power limit);
+   power limit) and the host (CPU model, cores, 1-minute load average);
 2. build: one nvcc per ``src/repro_torch/kernels/csrc/*.cu``, all started
    together, for sm_90a; Triton compiles the fused-field kernel; the count
    of tensor-core instructions (HMMA) in K5's SASS, which must not be 0;
@@ -42,7 +42,7 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    budget's high water beside the card's peak; and one region whose
    ``DEVICE`` hints a ``BudgetedPlacer`` demotes, its operand migrated in
    for the call and booked as staging;
-8. the serve path: ``rwkv6-7b`` at full width and 8 of its 32 layers
+8. the serve path: ``rwkv6-7b`` at full width and 2 of its 32 layers
    (random weights from ``--seed``), batch 4, prompt 1024, 32 greedy
    tokens, through the
    captured prefill and decode programs under the unified policy with the
@@ -57,12 +57,12 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    again at all 32 layers with the weights widened to f32 (these two held
    eagerly, as before regions were compiled);
 9. ``[batch]``: ``RegionProgram.replay_batch`` of the decode program
-   (4 tokens) of the served ``rwkv6-7b`` (8 layers) over 2 request
+   (4 tokens) of the served ``rwkv6-7b`` (2 layers) over 2 request
    groups of 4, against each group's solo replay (the first decoded token
    equal in every row), and of a captured PBiCGStab solve at 200^3 over 2
    right-hand sides, whose vmap rules launch K1-K4, against the solo
    replays;
-10. ``[serve-attn]``: ``tinyllama-1.1b`` at full width and the first 8
+10. ``[serve-attn]``: ``tinyllama-1.1b`` at full width and the first 2
    of its 22 layers (random bf16 weights from ``--seed``, drawn for 22
    layers), batch 4, prompt 1024, 32
    greedy tokens through the captured programs, compiled (each attention
@@ -70,8 +70,8 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    the uncaptured path; the compiled prefill (logits, every layer's k and
    v) and one decode step against the same functions run eagerly, in bf16
    and with the weights widened to f32; then ``llama3.2-3b`` at full width
-   and 4 of its 28 layers and ``qwen2.5-32b`` (a QKV bias) at full width
-   and 4 of its 64 layers, 8 tokens each, compiled, their tokens against
+   and 1 of its 28 layers and ``qwen2.5-32b`` (a QKV bias) at full width
+   and 1 of its 64 layers, 8 tokens each, compiled, their tokens against
    the uncaptured path;
 11. ``[engine]``: ``gemma3-1b`` at full width and depth (26 layers, 5:1
    local:global, random bf16 weights from ``--seed``) through the
@@ -81,12 +81,32 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    tokens each), every request's tokens held to its solo decode, with
    tokens/s against the sequential solo decodes, per-token p50/p99,
    first-token p50, slot occupancy, KV page high water and the first-call
-   seconds of the engine's regions; then the first 8 requests of the same
-   draw under the discrete policy, ``--offload-kv``, a device page budget
-   that spills, a ``MemoryBudget`` at ratio 2 and a total budget that
-   evicts, each held to the same oracle; then ``rwkv6-7b`` at 8 layers
-   through the engine, its prefills launching K5;
-12. a ``kernels`` JSON line (kernels of both paths) and a ``port_status``
+   seconds of the engine's regions; the same traffic through a one-slot
+   engine (the reference's ``sequential`` run of ``fig_traffic``), with
+   tokens/s, ticks, decode tokens a tick and ms a tick of both, the
+   engine gated above it; then the first 8 requests of the same draw
+   under the discrete policy, ``--offload-kv``, a device page budget that
+   spills, a
+   ``MemoryBudget`` at ratio 2 and a total budget that evicts, each held
+   to the same oracle; then ``rwkv6-7b`` at 8 layers through the engine,
+   its prefills launching K5, and through a one-slot engine, with the
+   ticks of both.  For both models one decode
+   layer of each kind and the head, compiled, fed
+   n = 1..4 rows from the same seeded rows, give each row bit for bit its
+   n = 1 output (the tick runs each layer once over all its slots);
+12. ``[train]``: ``tinyllama-1.1b`` at full width (22 layers, bf16
+   parameters, f32 AdamW moments, random from ``--seed``), 4 x 1024
+   synthetic tokens a step from the ported pipeline, through the captured
+   ``FWD_BWD``/``ADAMW_UPDATE`` program under the unified policy,
+   compiled (each layer kind's forward and VJP once): a warm-up step, 5
+   timed steps (s a step, tok/s, losses, grad norm, compile seconds, peak
+   memory), 5 steps on one fixed batch (the loss must fall); then at 2
+   layers in f32, compiled against eager: one layer's VJP, ``FWD_BWD``'s
+   loss and every gradient leaf (also against an f64 run) and two
+   ``ADAMW_UPDATE`` steps on the same gradients; then the optimizer
+   offloaded to host memory, one discrete step, and a supervised run with
+   a fault, bit for bit an uninterrupted one;
+13. a ``kernels`` JSON line (kernels of both paths) and a ``port_status``
    JSON line (every TPU kernel of the reference and whether it is ported).
 
 Each path's kernel launches are counted from 0 just before it and read
@@ -107,7 +127,10 @@ import argparse
 import collections
 import dataclasses
 import json
+import math
+import os
 import pathlib
+import platform
 import re
 import shutil
 import statistics
@@ -139,16 +162,18 @@ SCAN_ON_MODEL_TOL = 1e-4
 # f32 rounding of the decays' running sums amplified by 32 layers
 # (2e-5 of max|S| and of max|logit| at d_model=256 on a CPU)
 F32_PREFILL_TOL = 1e-4
-# rwkv6-7b serve (and [batch]) at 8 of its 32 layers: each served model
+# rwkv6-7b serve (and [batch]) at 2 of its 32 layers: each served model
 # compiles its steps several times (captured regions, the uncaptured path,
 # the batched composite), and a step's graph grows by one layer op a layer
-SERVE = dict(batch=4, prompt_len=1024, gen=32, gen_discrete=8, layers=8)
-# tinyllama-1.1b at the first 8 of its 22 layers (drawn at 22: the init's
-# scale follows the depth), llama3.2-3b at 4 of its 28 and qwen2.5-32b (a
-# QKV bias) at 4 of its 64, for the time limit: a whole-model graph
-# compiles in about a second a layer, and [engine] needs the time
+# (cut from 8 layers for [train]'s time)
+SERVE = dict(batch=4, prompt_len=1024, gen=32, gen_discrete=8, layers=2)
+# tinyllama-1.1b at the first 2 of its 22 layers (drawn at 22: the init's
+# scale follows the depth), llama3.2-3b at 1 of its 28 and qwen2.5-32b (a
+# QKV bias) at 1 of its 64, for the time limit: a whole-model graph
+# compiles in about a second a layer, and [engine] and [train] need the
+# time (cut from 8, 4 and 4 layers)
 SERVE_ATTN = dict(batch=4, prompt_len=1024, gen=32, llama_gen=8,
-                  tinyllama_layers=8, llama_layers=4, qwen_layers=4)
+                  tinyllama_layers=2, llama_layers=1, qwen_layers=1)
 # the [engine] phase: gemma3-1b at full width and depth through the
 # continuous-batching engine under seeded Poisson traffic (make_traffic's
 # arguments), then the budget and policy runs on the first `sub` requests
@@ -156,6 +181,28 @@ SERVE_ATTN = dict(batch=4, prompt_len=1024, gen=32, llama_gen=8,
 ENGINE = dict(slots=4, page_tokens=64, requests=16, rate=0.5,
               prompt_lens=(512, 1024), gen_lens=(1, 16, 32), sub=8,
               rwkv_layers=8, rwkv_requests=8, rwkv_gen_lens=(1, 8, 16))
+# the [train] phase: tinyllama-1.1b at full width, batch x seq tokens a
+# step, `steps` timed steps after one warm-up; the checks run at
+# `check_layers` layers (full width), the supervised run `sup_steps` steps
+# with a checkpoint every `ckpt_every` and a fault at step `fail_at`
+TRAIN = dict(arch="tinyllama-1.1b", layers=22, batch=4, seq=1024, steps=5,
+             check_layers=2, sup_steps=5, ckpt_every=2, fail_at=3)
+# compiled against eager f32 at 2 layers (TF32 off), on the same inputs:
+# one attention layer's VJP alone, FWD_BWD's loss and gradients, and two
+# ADAMW_UPDATE steps on the same gradients, each leaf against its own
+# largest magnitude.  The random init is steep, so f32 rounding alone
+# moves a gradient leaf far more than a layer's output: each leaf's
+# compiled gradient is held to the f64 gradient within TRAIN_GRAD_RATIO
+# times the eager one's distance to it (or TRAIN_GRAD_FLOOR), as is the
+# grad norm
+TRAIN_VJP_TOL = 1e-4           # of each leaf's largest magnitude
+TRAIN_LOSS_TOL = 1e-5          # relative
+TRAIN_GRAD_RATIO = 4.0
+TRAIN_GRAD_FLOOR = 1e-5        # of each leaf's largest magnitude
+TRAIN_PARAM_TOL = 1e-6         # of each leaf's largest magnitude
+# offloaded moments against device-resident ones: the update runs on the
+# card either way (the moments are copied in for the call), bit for bit
+TRAIN_OFFLOAD_TOL = 0.0
 # compiled against eager tinyllama prefill and decode steps, relative to
 # max(1, max|x|).  In f32 (TF32 off) each compiled layer, fed the eager
 # layer's input, must stay within ATTN_LAYER_TOL of it: the two differ in
@@ -333,6 +380,27 @@ def first_diff(a, b):
     return out
 
 
+def host_line():
+    """The host's CPU model, core count and 1-minute load average:
+    host-bound readings (a decode step, the engine's tick) follow them."""
+    model = None
+    try:
+        for ln in pathlib.Path("/proc/cpuinfo").read_text().splitlines():
+            if ln.startswith("model name"):
+                model = ln.split(":", 1)[1].strip()
+                break
+    except OSError:
+        pass
+    if not model and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=60).stdout
+        model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.startswith("Model name")), None)
+    model = model or platform.processor() or platform.machine()
+    return (f"{model}, {os.cpu_count()} cores, load average (1 min) "
+            f"{os.getloadavg()[0]:.2f}")
+
+
 def on_card(tree):
     from torch.utils._pytree import tree_leaves
     return any(isinstance(t, torch.Tensor) and t.is_cuda
@@ -379,8 +447,11 @@ def count_plain_calls(Region, ref_modules, compile_disabled):
             if on_card((a, k)):
                 if plain_key is not None:
                     note_plain(plain_key)
+                # a region compiled by parts runs its function, whose parts
+                # are compiled executables (train's FWD_BWD)
                 if not torch.compiler.is_compiling() \
-                        and not compile_disabled():
+                        and not compile_disabled() \
+                        and not self.compiled_by_parts:
                     EAGER[eager_key] += 1
             return fn(*a, **k)
         return call
@@ -524,7 +595,7 @@ def engine_phase(args, dev, stamp):
         return probe.total_bytes
 
     def serve(cfg, params, regions, reqs, max_len, what, policy=None,
-              **kv_kw):
+              slots=None, **kv_kw):
         """One engine run over ``reqs`` (its own warm-up first); checks no
         plain version or eager region ran on the card."""
         ex = Executor(policy or lm_policy("unified", cfg.memory,
@@ -532,7 +603,7 @@ def engine_phase(args, dev, stamp):
                       Ledger("engine"))
         kv = PagedKVCache(page_tokens=E["page_tokens"], device=dev, **kv_kw)
         engine = ServeEngine(cfg, params, ex, max_len=max_len,
-                             n_slots=E["slots"], kv=kv, device=dev,
+                             n_slots=slots or E["slots"], kv=kv, device=dev,
                              regions=regions)
         reset_plain()
         metrics = run_traffic(engine, reqs)
@@ -549,6 +620,91 @@ def engine_phase(args, dev, stamp):
                              rwkv_impl=impl)
         check_plain("[engine] solo oracle")
         return out
+
+    def rows_check(arch, cfg, params, max_len):
+        """One decode layer of each kind of ``cfg``, compiled, and then the
+        head, fed n = 1..4 rows built from the same seeded rows (each row
+        at its own position, the engine's cache shapes): each row's output
+        must equal its n = 1 output bit for bit.  Prints the first op that
+        parts, if one does, and raises."""
+        ops = T.layer_fns(cfg, T.Ctx(mode="decode"))
+        kinds = T.layer_kinds(cfg)
+        g = torch.Generator(device=dev).manual_seed(args.seed + 5)
+        n_rows = E["slots"]
+        pos = torch.tensor([max_len // 2 + 7 * i for i in range(n_rows)],
+                           dtype=torch.int32, device=dev)
+        cases = []
+        for kind in dict.fromkeys(kinds):
+            layer = kinds.index(kind)
+            op = ops[kind]
+            cache = T.init_cache(cfg, 1, dev, max_len)[layer]
+            leaves = []
+            for k in op._cache_keys:
+                c = cache[k]
+                if k == "pos":
+                    sl = torch.arange(c.shape[0], dtype=torch.int32,
+                                      device=dev)
+                    leaves.append(torch.stack([torch.where(sl < p, sl, -1)
+                                               for p in pos.tolist()]))
+                else:
+                    leaves.append(torch.randn((n_rows, *c.shape), generator=g,
+                                              device=dev).to(c.dtype))
+            x = torch.randn((n_rows, 1, 1, cfg.d_model), generator=g,
+                            device=dev).to(torch.bfloat16)
+            p = T._leaves(params["layers"][layer])
+            cases.append((f"layer {layer} {kind[0]}", lambda idx, op=op,
+                          p=p, x=x, c=leaves: torch.func.vmap(
+                              op.op, in_dims=(None, 0, [0] * len(c), 0))(
+                              p, x[idx], [t[idx] for t in c], pos[idx])))
+        hx = torch.randn((n_rows, 1, cfg.d_model), generator=g,
+                         device=dev).to(torch.bfloat16)
+        cases.append(("head", lambda idx: [ops["head"](params, hx[idx])]))
+        for what, run in cases:
+            solo = [run([i]) for i in range(n_rows)]
+            for n in range(2, n_rows + 1):
+                got = run(list(range(n)))
+                for i in range(n):
+                    for j, (a, b) in enumerate(zip(got, solo[i])):
+                        if not torch.equal(a[i], b[0]):
+                            err = (a[i].float() - b[0].float()).abs().max()
+                            raise AssertionError(
+                                f"[engine] rows: {arch}: {what} (output {j})"
+                                f" parts first, at n={n}, row {i}: max |diff|"
+                                f" {float(err)}")
+        print(f"[engine] rows: {arch}: "
+              + ", ".join(w for w, _ in cases) + f" at n = 1..{n_rows} rows "
+              "(compiled): every row bit for bit its n = 1 output: passed")
+
+    def tick_line(m, ex):
+        srv = ex.report()["serve"]
+        row = ex.ledger.regions["DECODE_SLOTS"]
+        ticks = srv.get("ticks", 0)
+        tick_ms = (row.compute_s + row.staging_s) / max(row.calls, 1) * 1e3
+        return (f"{m['tokens_per_s']:.1f} tok/s, {ticks} ticks, "
+                f"{srv.get('decode_tokens', 0) / max(ticks, 1):.2f} decode "
+                f"tokens a tick, {tick_ms:.2f} ms a tick (DECODE_SLOTS)")
+
+    def one_slot(cfg, params, regions, reqs, max_len, oracle, arch, m, ex,
+                 solo_tps, gate):
+        """The same traffic (``reqs()``, drawn anew) through a one-slot
+        engine under the same policy
+        (the reference's ``sequential`` run of ``fig_traffic``): tokens
+        held to the same oracle; with ``gate``, the engine's tok/s must be
+        above it (``benchmarks/run.py:533-538``)."""
+        reqs1 = reqs()
+        _, ex1, _, m1 = serve(cfg, params, regions, reqs1, max_len,
+                              f"{arch} one slot", slots=1)
+        assert_parity(reqs1, oracle)
+        print(f"[engine] {arch} unified, {E['slots']} slots: "
+              f"{tick_line(m, ex)}; one slot: {tick_line(m1, ex1)}; "
+              f"sequential solo decode {solo_tps:.1f} tok/s; engine / one "
+              f"slot {m['tokens_per_s'] / m1['tokens_per_s']:.2f}x; tokens "
+              f"equal to the solo oracle's in both")
+        if gate and not m["tokens_per_s"] > m1["tokens_per_s"]:
+            raise AssertionError(
+                f"[engine] {arch}: {E['slots']} slots read "
+                f"{m['tokens_per_s']:.1f} tok/s, not above the one-slot "
+                f"engine's {m1['tokens_per_s']:.1f}")
 
     def line(what, m, ex, kv, solo_tps=None):
         st = kv.stats
@@ -588,6 +744,11 @@ def engine_phase(args, dev, stamp):
     line(f"gemma3-1b unified, {E['slots']} slots, {E['requests']} requests "
          f"at {E['rate']} a tick, prompts {E['prompt_lens']}, gens "
          f"{E['gen_lens']}", m, ex, kv, solo_tps)
+    rows_check("gemma3-1b", gcfg, gparams, max_len)
+    one_slot(gcfg, gparams, regions, lambda: make_traffic(
+        args.seed, E["requests"], gcfg.vocab, arrival_rate=E["rate"],
+        prompt_lens=E["prompt_lens"], gen_lens=E["gen_lens"]), max_len,
+        oracle, "gemma3-1b", m, ex, solo_tps, gate=True)
     print(f"[compile] [engine] first call (trace, compile, run): DECODE_SLOTS "
           + ", ".join(f"{s.first_call_s:.2f} s ({s.compiles} compiled)"
                       for s in regions.decode_slots.compile_stats.values())
@@ -705,6 +866,11 @@ def engine_phase(args, dev, stamp):
     line(f"rwkv6-7b ({rcfg.n_layers} layers, hopper) unified, "
          f"{E['slots']} slots, {E['rwkv_requests']} requests, gens "
          f"{E['rwkv_gen_lens']}", m, ex, kv, m["tokens"] / solo_wall)
+    one_slot(rcfg, rparams, rregions, lambda: make_traffic(
+        args.seed, E["rwkv_requests"], rcfg.vocab, arrival_rate=E["rate"],
+        prompt_lens=E["prompt_lens"], gen_lens=E["rwkv_gen_lens"]), rmax,
+        oracle, "rwkv6-7b", m, ex, m["tokens"] / solo_wall, gate=False)
+    rows_check("rwkv6-7b", rcfg, rparams, rmax)
     impl_counts = ex.ledger.regions["PREFILL"].impl_counts
     print(f"[engine] rwkv6-7b: K5 launches over the engine run {k5} (warm-up"
           f" and captures included; {rcfg.n_layers} a prefill); measured "
@@ -713,6 +879,263 @@ def engine_phase(args, dev, stamp):
         raise AssertionError("[engine] rwkv6-7b's engine run launched no K5")
     del engine, ex, kv, rparams, rregions
     return k5
+
+
+def train_phase(args, dev, stamp):
+    """``[train]``: tinyllama-1.1b at full width, bf16 parameters and f32
+    moments, random from ``--seed``, trained through the captured
+    ``FWD_BWD``/``ADAMW_UPDATE`` program under the unified policy,
+    compiled, on synthetic tokens from the ported pipeline: one warm-up
+    step, then ``TRAIN["steps"]`` timed ones, then the same number on one
+    fixed batch (the loss must fall: a sanity check).  Then, at
+    ``TRAIN["check_layers"]`` layers: the compiled step in f32 against
+    the eager one, ``--offload-optimizer`` (the moments in host memory
+    between steps, the parameters equal to the device-resident run's),
+    one step under the discrete policy, and a supervised run with a
+    checkpoint every ``ckpt_every`` steps and a fault at ``fail_at``,
+    its losses bit for bit an uninterrupted run's."""
+    from torch.utils import _pytree as pytree
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.ledger import Ledger
+    from repro_torch.core.regions import (Executor, disable_compile,
+                                          synchronize)
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.policy import lm_policy
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import embed
+    from repro_torch.models.params import param_count
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import FaultInjector, TrainSupervisor
+    from repro_torch.train import step as S
+    TR = TRAIN
+    B, L = TR["batch"], TR["seq"]
+    full = get_config(TR["arch"])
+    cfg = dataclasses.replace(full, n_layers=TR["layers"])
+    src = SyntheticTokens(cfg.vocab, seed=args.seed)
+
+    def batch_fn(step):
+        page = src.batch_at(step, B, L)
+        tokens = page.to(dev, copy=True)
+        src.release(page)
+        return {"tokens": tokens}
+
+    def trainer(c, **kw):
+        # a cut model is the first layers of a full-depth draw (the init's
+        # scale follows the depth; drawn at 2 layers, tinyllama's f32
+        # activations reach ~1e5 and its gradients lose ~5 digits)
+        return LT.build_trainer(c, seed=args.seed, device=dev,
+                                q_chunk=min(512, L),
+                                draw_layers=full.n_layers, **kw)
+
+    def run(step_fn, state, steps, batch=None):
+        """``steps`` replays; (state, losses, grad norms, seconds)."""
+        losses, gnorms = [], []
+        synchronize()
+        t0 = time.perf_counter()
+        for s in steps:
+            state, m = step_fn(state, batch or batch_fn(s))
+            losses.append(m["loss"])
+            gnorms.append(m["grad_norm"])
+        synchronize()
+        return (state, [float(x) for x in losses],
+                [float(x) for x in gnorms], time.perf_counter() - t0)
+
+    # -- the run at full width -------------------------------------------
+    print(f"[train] {TR['arch']}: {cfg.n_layers} of {full.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} kv "
+          f"heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{param_count(T.param_specs(cfg))} params, {cfg.param_dtype} "
+          f"params, f32 moments; {B}x{L} tokens a step, unified, compiled")
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, capture_fn, ex = trainer(cfg)
+    regions = init_fn.regions
+    state = init_fn()
+    reset_plain()
+    t0 = time.perf_counter()
+    step_fn = capture_fn(state, batch_fn(0))
+    t_capture = time.perf_counter() - t0
+    state, warm, _, t_warm = run(step_fn, state, [0])
+    state, losses, gnorms, dt = run(step_fn, state,
+                                    range(1, TR["steps"] + 1))
+    check_plain("[train]")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] {TR['steps']} steps after a warm-up: "
+          f"{dt / TR['steps']:.4f} s a step, "
+          f"{TR['steps'] * B * L / dt:.1f} tok/s; warm-up step {t_warm:.3f} s"
+          f" (loss {warm[0]:.4f}); first loss {losses[0]:.4f}, last loss "
+          f"{losses[-1]:.4f}; grad norm first {gnorms[0]:.4f}, last "
+          f"{gnorms[-1]:.4f}; torch.cuda.max_memory_allocated() "
+          f"{peak / 1e9:.2f} GB")
+    print(f"[compile] [train] capture (first call of every part) "
+          f"{t_capture:.2f} s; " + "; ".join(
+              f"{name} by parts: " + ", ".join(
+                  f"{k} {st.first_call_s:.2f} s ({st.recompiles} recompiles)"
+                  for k, st in parts.items())
+              for name, parts in S.compile_records(regions).items()))
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"[train] a loss or grad norm is not finite: "
+                             f"{losses} {gnorms}")
+    fixed = batch_fn(10_000)
+    state, fl, _, _ = run(step_fn, state, range(TR["steps"]), fixed)
+    print(f"[train] loss on one fixed batch over {TR['steps']} steps "
+          f"(a sanity check): {' '.join(f'{x:.4f}' for x in fl)}")
+    if not fl[-1] < fl[0]:
+        raise AssertionError("[train] the loss did not fall on a fixed batch")
+    check_plain("[train] fixed batch")
+    del state, step_fn, init_fn, capture_fn, ex, regions
+    stamp("[train] full width")
+
+    # -- f32 at check_layers: compiled against eager -----------------------
+    # FWD_BWD's gradients and ADAMW_UPDATE's parameters, compiled against
+    # eager on the same inputs, each leaf against its own largest
+    # magnitude; the gradients also against an f64 eager run of the same
+    # model (the exact gradient up to the f32 RMSNorms), which tells the
+    # f32 rounding of a steep init from a wrong compiled VJP
+    c32 = dataclasses.replace(cfg, n_layers=TR["check_layers"],
+                              param_dtype="float32", compute_dtype="float32")
+    c64 = dataclasses.replace(c32, param_dtype="float64",
+                              compute_dtype="float64")
+    init_fn, _, _ = trainer(c32)
+    p32 = init_fn()[0]
+    p64 = pytree.tree_map(lambda t: t.double(), p32)
+    fixed = batch_fn(0)
+    tctx = T.Ctx(mode="train", q_chunk=min(512, L))
+    names = [pytree.keystr(k) for k, _ in
+             pytree.tree_flatten_with_path(p32)[0]]
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max().clamp(min=1e-300))
+    # one train layer's VJP alone, compiled against eager, same inputs
+    layer = T.train_layer_fns(c32, tctx)[("attn", "dense")]
+    lp = T._leaves(p32["layers"][0])
+    gx = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    x0 = embed(p32["embed"], fixed["tokens"], c32)
+    dy = torch.randn(x0.shape, generator=gx, device=dev)
+    got = layer.vjp(lp, x0, dy)
+    with disable_compile():
+        want = layer.vjp(lp, x0, dy)
+    vjp_err = max(rel(a, b) for a, b in zip(got, want))
+    (lc, _), gc = S.value_and_grad(p32, fixed, c32, tctx)
+    with disable_compile():
+        (le, _), ge = S.value_and_grad(p32, fixed, c32, tctx)
+        (l64, _), g64 = S.value_and_grad(p64, fixed, c64, tctx)
+    loss_err = abs(float(lc) - float(le)) / abs(float(le))
+    gn = [float(adamw.global_norm(g)) for g in (gc, ge, g64)]
+    gnorm_err = abs(gn[0] - gn[1]) / gn[1]
+    gnorm_c64, gnorm_e64 = (abs(x - gn[2]) / gn[2] for x in gn[:2])
+    leaf = []                       # (name, vs eager, compiled/eager vs f64)
+    for nm, a, b, r in zip(names, pytree.tree_leaves(gc),
+                           pytree.tree_leaves(ge), pytree.tree_leaves(g64)):
+        leaf.append((nm, rel(a, b), rel(a, r), rel(b, r)))
+    worst = sorted(leaf, key=lambda t: -t[1])
+    bad = [t for t in leaf if t[2] > max(TRAIN_GRAD_RATIO * t[3],
+                                         TRAIN_GRAD_FLOOR)]
+    opt_cfg = adamw.AdamWConfig(lr=3e-4)
+    pc = pe = p32
+    sc = se = adamw.init_state(p32, opt_cfg)
+    for _ in range(2):
+        pc, sc, _ = adamw.apply_updates(pc, ge, sc, opt_cfg)
+        with disable_compile():
+            pe, se, _ = adamw.apply_updates(pe, ge, se, opt_cfg)
+    param_err = max(rel(a, b) for a, b in zip(pytree.tree_leaves(pc),
+                                              pytree.tree_leaves(pe)))
+    print(f"[train] f32, {c32.n_layers} layers, compiled against eager "
+          f"(TF32 off): one attention layer's VJP alone, same inputs: "
+          f"{vjp_err:.3e} of each leaf's largest magnitude (limit "
+          f"{TRAIN_VJP_TOL}); FWD_BWD: loss {loss_err:.3e} relative (limit "
+          f"{TRAIN_LOSS_TOL}), grad norm {gnorm_err:.3e} (against f64: "
+          f"compiled {gnorm_c64:.3e}, eager {gnorm_e64:.3e}); gradients by "
+          f"leaf, compiled against eager (against f64: compiled, eager), "
+          f"worst first: " + "; ".join(
+              f"{nm} {e:.2e} ({c:.2e}, {r:.2e})" for nm, e, c, r in worst)
+          + f"; each leaf's compiled gradient within max({TRAIN_GRAD_RATIO} "
+          f"x eager's, {TRAIN_GRAD_FLOOR}) of the f64 one: "
+          f"{len(leaf) - len(bad)} of {len(leaf)}; ADAMW_UPDATE on the same "
+          f"gradients, 2 steps: params {param_err:.3e} of each leaf's "
+          f"largest magnitude (limit {TRAIN_PARAM_TOL})")
+    if vjp_err > TRAIN_VJP_TOL or loss_err > TRAIN_LOSS_TOL or bad or \
+            gnorm_c64 > max(TRAIN_GRAD_RATIO * gnorm_e64,
+                            TRAIN_GRAD_FLOOR) or \
+            param_err > TRAIN_PARAM_TOL:
+        raise AssertionError("[train] the compiled f32 step parts from the "
+                             f"eager one: {[t[0] for t in bad]}")
+    del p32, p64, gc, ge, g64, pc, pe, sc, se, got, want
+    stamp("[train] f32 compiled against eager")
+
+    # -- offload, discrete, supervised: bf16 at check_layers ---------------
+    c2 = dataclasses.replace(cfg, n_layers=TR["check_layers"])
+    init_fn, capture_fn, ex = trainer(c2)
+    state = init_fn()
+    base, _, _, _ = run(capture_fn(state, batch_fn(0)), state, range(2))
+    init_fn, capture_fn, ex_off = trainer(c2, offload_optimizer=True)
+    state = init_fn()
+    step_fn = capture_fn(state, batch_fn(0))
+    where = []
+    for s in range(2):
+        state, _, _, _ = run(step_fn, state, [s])
+        where.append(sorted({str(t.device) for t in pytree.tree_leaves(
+            (state[1]["m"], state[1]["v"]))}))
+    off_err = max(float((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp(min=1e-30))
+                  for a, b in zip(pytree.tree_leaves(state[0]),
+                                  pytree.tree_leaves(base[0])))
+    pinned = all(t.is_pinned() for t in pytree.tree_leaves(
+        (state[1]["m"], state[1]["v"])))
+    rep = ex_off.report()
+    print(f"[train] --offload-optimizer, unified, {c2.n_layers} layers: AdamW"
+          f" moments between steps on {where} (pinned {pinned}); "
+          f"staging_fraction {rep['staging_fraction']:.4f} "
+          f"({rep['staging_s']:.4f} s); params against the device-resident "
+          f"run's: {off_err:.3e} of the leaf's largest magnitude (limit "
+          f"{TRAIN_OFFLOAD_TOL})")
+    if any(w != ["cpu"] for w in where) or off_err > TRAIN_OFFLOAD_TOL:
+        raise AssertionError("[train] offloaded moments left host memory or "
+                             "changed the update")
+    del state, step_fn, base
+    d_ex = Executor(lm_policy("discrete", c2.memory, device=dev),
+                    Ledger("train-discrete"))
+    init_fn, capture_fn, _ = trainer(c2, executor=d_ex)
+    state = init_fn()
+    run(capture_fn(state, batch_fn(0)), state, [0])
+    rep = d_ex.report()
+    print(f"[train] one step under discrete, {c2.n_layers} layers: "
+          f"staging_fraction {rep['staging_fraction']:.4f} "
+          f"({rep['staging_s']:.4f} s staging)")
+    if not rep["staging_fraction"] > 0:
+        raise AssertionError("[train] discrete staged nothing")
+    del state
+    stamp("[train] offload and discrete")
+
+    ckpt_root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    init_fn, capture_fn, ex_s = trainer(c2)
+    hist = {}
+    for name, fail in (("uninterrupted", ()), ("fault", (TR["fail_at"],))):
+        state = init_fn()
+        sup = TrainSupervisor(
+            capture_fn(state, batch_fn(0)), batch_fn,
+            Checkpointer(str(ckpt_root / name), keep=2),
+            ckpt_every=TR["ckpt_every"], fault=FaultInjector(fail),
+            rebuild_step=lambda st, step: capture_fn(st, batch_fn(step)),
+            report_fn=ex_s.report)
+        state, rep = sup.run(state, 0, TR["sup_steps"])
+        hist[name] = ({s: m["loss"] for s, m in rep.history}, rep.restarts)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    rows = sorted(ex_s.ledger.regions)
+    same = hist["fault"][0] == hist["uninterrupted"][0]
+    print(f"[train] supervised, {c2.n_layers} layers, {TR['sup_steps']} "
+          f"steps, a checkpoint every {TR['ckpt_every']}, fault at step "
+          f"{TR['fail_at']}: {hist['fault'][1]} restart; losses "
+          f"{'equal' if same else 'NOT equal'} bit for bit to the "
+          f"uninterrupted run's ({hist['fault'][0]}); ledger rows {rows}")
+    if not same or hist["fault"][1] != 1 or rows != ["ADAMW_UPDATE",
+                                                    "FWD_BWD"]:
+        raise AssertionError("[train] the supervised restart parts from the "
+                             "uninterrupted run")
+    stamp("[train] supervised")
 
 
 def main(argv=None):
@@ -757,6 +1180,7 @@ def main(argv=None):
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import embed
     from repro_torch.models.params import param_count
+    from repro_torch.optim import adamw
     from repro_torch.train import step as train_step
     count_plain_calls(Region, (SR, FR, RR), compile_disabled)
 
@@ -774,6 +1198,7 @@ def main(argv=None):
     print(f"[device] torch: {name}  count: {torch.cuda.device_count()}  "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi.splitlines()[0])
+    print(f"[host] {host_line()}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 comparisons below
@@ -1791,7 +2216,7 @@ def main(argv=None):
 
     stamp("batch")
 
-    # -- 10. serve attention: tinyllama-1.1b, llama3.2-3b ---------------
+    # -- 10. serve attention: tinyllama-1.1b, qwen2.5-32b ---------------
     AB, AP, AG = SERVE_ATTN["batch"], SERVE_ATTN["prompt_len"], \
         SERVE_ATTN["gen"]
 
@@ -2066,11 +2491,20 @@ def main(argv=None):
     engine_k5 = engine_phase(args, dev, stamp)
     stamp("engine")
 
+    # -- 12. [train]: tinyllama-1.1b at full width ---------------------------
+    train_phase(args, dev, stamp)
+    stamp("train")
+
     # every compiled executable of the run: at most two recompiles
     worst = max([(st.recompiles, r.name) for r in REGIONS
                  for st in r.compile_stats.values()]
                 + [(op.stats.recompiles, op.label)
-                   for op in T.LAYER_OPS.values()])
+                   for op in T.LAYER_OPS.values()]
+                + [(op.vjp_stats.recompiles, op.label + "_vjp")
+                   for op in T.LAYER_OPS.values()
+                   if isinstance(op, T.TrainLayer)]
+                + [(st.recompiles, name)
+                   for name, st in adamw.compile_stats().items()])
     print(f"[compile] {sum(len(r.compile_stats) for r in REGIONS)} compiled "
           f"region executables and "
           f"{sum(1 for op in T.LAYER_OPS.values() if op.stats.calls)} "
@@ -2080,7 +2514,7 @@ def main(argv=None):
         raise AssertionError(f"region {worst[1]} recompiled {worst[0]} times")
 
 
-    # -- 12. the kernels of both paths, and the port's status ------------
+    # -- 13. the kernels of both paths, and the port's status ------------
     print(json.dumps({"kernels": [records[k]
                                   for k in on_path + ("rwkv6_scan",)]}))
     status = [

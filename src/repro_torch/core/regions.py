@@ -243,6 +243,8 @@ def _alias_results(out, args, donate: Tuple[int, ...]):
                if isinstance(x, torch.Tensor)]
     inputs = [x for x in pytree.tree_leaves(args)
               if isinstance(x, torch.Tensor)]
+    # plain loops, no generators: Dynamo traces this body on every
+    # compile, and an inlined generator costs it far more than a loop
     taken = set()
     for o in leaves:                        # identity first
         for k, d in enumerate(donated):
@@ -250,8 +252,7 @@ def _alias_results(out, args, donate: Tuple[int, ...]):
                 taken.add(k)
                 break
     for j, o in enumerate(leaves):
-        if not isinstance(o, torch.Tensor) or \
-                any(o is d for d in donated):
+        if not isinstance(o, torch.Tensor) or _is_one_of(o, donated):
             continue
         for k, d in enumerate(donated):
             if k not in taken and d.shape == o.shape \
@@ -261,9 +262,16 @@ def _alias_results(out, args, donate: Tuple[int, ...]):
                 taken.add(k)
                 break
         else:
-            if any(o is x for x in inputs):
+            if _is_one_of(o, inputs):
                 leaves[j] = o.clone()
     return pytree.tree_unflatten(leaves, spec)
+
+
+def _is_one_of(x, items) -> bool:
+    for y in items:
+        if x is y:
+            return True
+    return False
 
 
 def _entry_point(fn: Callable, donate: Tuple[int, ...], label: str):
@@ -359,7 +367,12 @@ class Region:
     O(1) instead of copying it.  Donate only where the region is the last
     reader of that argument.  Executors under a staging policy run
     non-donating executables (``executable(donate=False)``): staged pages
-    belong to the pool."""
+    belong to the pool.
+
+    ``compiled_by_parts`` marks a function that compiles its own parts and
+    cannot be traced whole (the train step's ``FWD_BWD``, which runs
+    autograd over executables compiled per layer kind): its executable is
+    the function itself, on every target."""
     name: str
     fn: Callable
     offloaded: bool = True
@@ -370,6 +383,7 @@ class Region:
     halo_args: Optional[Sequence[Any]] = None
     donate_args: Optional[Sequence[int]] = None
     ledger: Ledger = dataclasses.field(default_factory=lambda: GLOBAL_LEDGER)
+    compiled_by_parts: bool = False
 
     def __post_init__(self):
         self.name = self.ledger.register(self.name, self.offloaded)
@@ -487,7 +501,7 @@ class Region:
             raise ValueError(
                 f"region {self.name!r}: variant {impl!r} launches a CUDA "
                 "kernel and cannot run on the host target")
-        if compile_disabled():
+        if compile_disabled() or self.compiled_by_parts:
             fn = self.impl_fn(impl)
             return _on_host(fn) if target == "host" else fn
         donating = bool(donate and self.donate_args)
@@ -508,7 +522,8 @@ def region(name: Optional[str] = None, *, offloaded: bool = True,
            result_space: Any = None,
            stencil: Optional[Sequence[Tuple[int, int]]] = None,
            halo_args: Optional[Sequence[Any]] = None,
-           donate_args: Optional[Sequence[int]] = None):
+           donate_args: Optional[Sequence[int]] = None,
+           compiled_by_parts: bool = False):
     """Decorator: mark a function as one offloadable region (listings 4-6).
 
         @region("Amul", placement={0: MemSpace.DEVICE},
@@ -522,7 +537,8 @@ def region(name: Optional[str] = None, *, offloaded: bool = True,
                       arg_spaces=placement, result_space=result_space,
                       stencil=stencil, halo_args=halo_args,
                       donate_args=donate_args,
-                      ledger=ledger or GLOBAL_LEDGER)
+                      ledger=ledger or GLOBAL_LEDGER,
+                      compiled_by_parts=compiled_by_parts)
     return wrap
 
 
@@ -746,13 +762,30 @@ class Placer:
     def migrations(self, region: Region, unplaced, placed) -> list:
         """``(leaf index, device)`` of each leaf of the placed call
         (``pytree`` leaf order of ``(args, kwargs)``) that a call run on
-        the card copies in for itself: here, each leaf the region's hints
-        moved off the card goes back to its device (the module
-        docstring)."""
+        the card copies in for itself: each leaf the region's hints moved
+        off the card goes back to its device, and each leaf of an argument
+        hinted to a host space that already lives in host memory (kept
+        there between calls, as offloaded AdamW moments are) goes to the
+        placer's card (the module docstring)."""
         if not region.arg_spaces:
             return []
         homes = pytree.tree_leaves(unplaced)
-        return [(i, homes[i].device) for i in _demoted(unplaced, placed)]
+        moves = [(i, homes[i].device) for i in _demoted(unplaced, placed)]
+        card = torch.device(self.device)
+        if card.type == "cpu":
+            return moves        # on the CPU host memory is the device's
+        hinted = {k for k, space in region.arg_spaces.items()
+                  if space is not umem.MemSpace.DEVICE}
+        hinted |= {region._param_index[k] for k in hinted
+                   if k in region._param_index}
+        taken = {i for i, _ in moves}
+        for i, (path, x) in enumerate(pytree.tree_flatten_with_path(
+                placed)[0]):
+            arg = getattr(path[1], "idx", getattr(path[1], "key", None))
+            if i not in taken and arg in hinted and isinstance(
+                    x, torch.Tensor) and x.device.type == "cpu":
+                moves.append((i, card))
+        return moves
 
     def place_result(self, region: Region, out):
         if not (self.honor_hints and region.result_space is not None):

@@ -1,14 +1,22 @@
 """Compile seconds of one compiled decode step by depth, for three ways of
-compiling its layer loop.
+compiling its layer loop, and of one train step's gradients.
 
     PYTHONPATH=src python -m repro_torch.launch.compile_depth \\
         [--arch rwkv6-7b] [--reduced] [--depths 2,6] \\
         [--designs inline,nested,layer_op] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.compile_depth --mode train \\
+        [--arch tinyllama-1.1b] [--depths 2,4,8] [--batch 4 --seq 1024]
 
 * ``inline``: every layer traced into the step's graph (``layers=None``);
 * ``nested``: each layer call a ``torch.compiler.nested_compile_region``;
 * ``layer_op``: the port's design, each layer kind a custom op whose body
   is the layer compiled once (``transformer.layer_fns``).
+
+``--mode train`` times the first call of ``train.step.value_and_grad``
+(the ``FWD_BWD`` region's function) with each layer kind a
+``transformer.TrainLayer`` (its forward and its VJP compiled once), at
+batch ``--batch`` x ``--seq`` tokens: the design ``train_layer``, with
+each part's first-call seconds and graphs.
 
 Each (design, depth) runs in a process of its own with an empty Inductor
 cache (under ``build/compile_depth/``), so no run reuses another's
@@ -54,6 +62,8 @@ def one_run(args, design: str, depth: int) -> dict:
     cfg = dataclasses.replace(cfg, n_layers=depth)
     dev = resolve_device(args.device)
     params = T.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    if design == "train_layer":
+        return train_run(args, cfg, params, dev)
     caches = T.init_cache(cfg, 4, dev, KV_SLOTS)
     tok = torch.zeros(4, dtype=torch.int32, device=dev)
     ctx = T.Ctx(mode="decode")
@@ -105,25 +115,60 @@ def one_run(args, design: str, depth: int) -> dict:
             else "cpu"}
 
 
+def train_run(args, cfg, params, dev) -> dict:
+    """The first call of ``value_and_grad`` on one batch, and its parts'
+    compile records."""
+    batch = S.demo_batch(torch.Generator(device=dev).manual_seed(0), cfg,
+                         args.batch, args.seq, dev)
+    t0 = time.perf_counter()
+    S.value_and_grad(params, batch, cfg, T.Ctx(mode="train"))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    parts = {}
+    for op in T.LAYER_OPS.values():
+        if isinstance(op, T.TrainLayer):
+            parts[op.label] = [op.stats.first_call_s, op.stats.compiles]
+            parts[op.label + "_vjp"] = [op.vjp_stats.first_call_s,
+                                        op.vjp_stats.compiles]
+    return {"design": "train_layer", "mode": "train",
+            "layers": cfg.n_layers, "tokens": [args.batch, args.seq],
+            "first_call_s": first, "parts": parts,
+            "torch": torch.__version__,
+            "device": torch.cuda.get_device_name(0) if dev.type == "cuda"
+            else "cpu"}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m "
                                  "repro_torch.launch.compile_depth")
-    ap.add_argument("--arch", default="rwkv6-7b")
+    ap.add_argument("--mode", choices=("decode", "train"), default="decode")
+    ap.add_argument("--arch", default=None,
+                    help="rwkv6-7b (decode) or tinyllama-1.1b (train)")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--depths", default="2,6")
-    ap.add_argument("--designs", default=",".join(DESIGNS))
+    ap.add_argument("--depths", default=None,
+                    help="2,6 (decode) or 2,4,8 (train)")
+    ap.add_argument("--designs", default=None)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--one", nargs=2, metavar=("DESIGN", "DEPTH"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    train = args.mode == "train"
+    args.arch = args.arch or ("tinyllama-1.1b" if train else "rwkv6-7b")
+    args.depths = args.depths or ("2,4,8" if train else "2,6")
+    args.designs = args.designs or ("train_layer" if train
+                                    else ",".join(DESIGNS))
     if args.one:
         print(json.dumps(one_run(args, args.one[0], int(args.one[1]))),
               flush=True)
         return
     designs = args.designs.split(",")
-    bad = [d for d in designs if d not in DESIGNS]
+    allowed = ("train_layer",) if train else DESIGNS
+    bad = [d for d in designs if d not in allowed]
     if bad:
-        ap.error(f"unknown designs {bad}; choose from {DESIGNS}")
+        ap.error(f"unknown designs {bad}; choose from {allowed}")
     passed = list(argv if argv is not None else sys.argv[1:])
     for depth in (int(d) for d in args.depths.split(",")):
         for design in designs:

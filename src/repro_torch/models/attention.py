@@ -12,21 +12,27 @@ reference's default) a prefill without a useful band runs the forward of
 
 The reference writes a decode token with ``dynamic_update_slice`` at a
 traced position; the port selects the slot with ``torch.where`` over the
-slot axis, so a compiled decode step takes the position as a 0-d tensor
-input (no graph break, no compile per position).  Unlike
+slot axis, so a compiled decode step takes the position as a tensor
+input (no graph break, no compile per position): 0-d, or one per row
+when the rows of a batch sit at their own positions (an engine tick's
+slots).  Unlike
 ``dynamic_update_slice``, which clamps an index past the end, a position
 beyond the cache writes nothing; the serve path sizes the cache to the
 prompt plus the generated tokens.
 
+Training (:func:`attn_train`) runs the same attention over the whole
+sequence, through the flash forward and its custom VJP
+(:func:`repro_torch.models.flash.make_flash_attention`) under
+``Ctx.flash``.
+
 Plain torch throughout: the reference has no Pallas kernel here.
-``attn_train``, cross-attention and the flash VJP wait (ROADMAP A.5.8,
-A.7).
+Cross-attention waits (ROADMAP A.5.7).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.flash import flash_attention
+from repro_torch.models.flash import flash_attention, make_flash_attention
 from repro_torch.models.layers import apply_rope, noshard
 from repro_torch.models.params import ParamSpec
 
@@ -152,17 +158,28 @@ def cache_specs(cfg, kind: str, batch: int, s_max: int) -> dict:
     }
 
 
+def _row_mask(m, shape):
+    """A mask of the slots, ``[slots]`` (every row) or ``[B, slots]`` (one
+    per row), reshaped to ``shape`` (``-1`` at the slot axis, 1 elsewhere)
+    with the batch axis first."""
+    lead = m.shape[0] if m.dim() == 2 else 1
+    return m.reshape(lead, *shape[1:])
+
+
 def decode_attend(q1, ck, cv, cpos, pos, *, window: int = 0, shd=noshard):
     """q1 [B,1,Hq,hd]; the cache already holds the current token at its
-    slot.  ``cpos`` [slots] int32 holds the absolute position in each slot
-    (-1 = empty).  Masks: slot valid, <= pos, and within the window if
-    local.  Logits in f32."""
+    slot.  ``cpos`` [slots] (shared by the rows) or [B, slots] int32 holds
+    the absolute position in each slot (-1 = empty); ``pos`` is 0-d or one
+    per row [B].  Masks, per row: slot valid, <= pos, and within the
+    window if local.  Logits in f32."""
     hd = q1.shape[-1]
+    pos = torch.as_tensor(pos, dtype=torch.int32,
+                          device=cpos.device)[..., None]
     valid = (cpos >= 0) & (cpos <= pos)
     if window > 0:
         valid &= cpos > pos - window
     logits = _grouped_logits(q1, ck).float()           # [B,Hkv,G,1,slots]
-    logits = torch.where(valid[None, None, None, None, :], logits, NEG_INF)
+    logits = torch.where(_row_mask(valid, (1, 1, 1, 1, -1)), logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(cv.dtype)
     B, Hkv, G, _, L = w.shape
     o = torch.einsum("bkgcl,blkd->bckgd", w, cv)
@@ -172,16 +189,17 @@ def decode_attend(q1, ck, cv, cpos, pos, *, window: int = 0, shd=noshard):
 def cache_insert(cache, k1, v1, pos, *, window: int = 0):
     """Write the current token's k/v at slot ``pos`` (the ring slot
     ``pos % slots`` for a local layer); ``pos`` is an int or a 0-d integer
-    tensor on the cache's device."""
+    tensor on the cache's device (every row at one position), or one
+    position per row [B], each row writing its own slot; then the slot
+    positions come back per row, [B, slots]."""
     slots = cache["k"].shape[1]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=cache["k"].device)
     slot = pos % slots if window > 0 else pos
-    hit = torch.arange(slots, device=cache["k"].device) == slot
-    ck = torch.where(hit[None, :, None, None], k1.to(cache["k"].dtype),
-                     cache["k"])
-    cv = torch.where(hit[None, :, None, None], v1.to(cache["v"].dtype),
-                     cache["v"])
-    cpos = torch.where(hit, pos, cache["pos"])
+    hit = torch.arange(slots, device=cache["k"].device) == slot[..., None]
+    at = _row_mask(hit, (1, -1, 1, 1))
+    ck = torch.where(at, k1.to(cache["k"].dtype), cache["k"])
+    cv = torch.where(at, v1.to(cache["v"].dtype), cache["v"])
+    cpos = torch.where(hit, pos[..., None], cache["pos"])
     return {**cache, "k": ck, "v": cv, "pos": cpos}
 
 
@@ -231,10 +249,25 @@ def _mix_attend(q, k, v, *, kind: str, cfg, ctx):
     chunk = min(ctx.q_chunk, T)
     banded_useful = window > 0 and (window + chunk) < k.shape[1]
     if ctx.flash and not banded_useful:
+        if ctx.mode == "train":             # the custom VJP
+            return make_flash_attention(causal, window, chunk)(q, k, v)
         return flash_attention(q, k, v, causal=causal, window=window,
                                chunk=chunk)
     return chunked_attention(q, k, v, causal=causal, window=window,
                              chunk=chunk, shd=ctx.shd)
+
+
+def attn_train(p, x, cfg, *, kind: str, ctx):
+    """Training forward: attention over the sequence at positions
+    ``arange(T)``, no cache (differentiable; the flash VJP under
+    ``Ctx.flash``)."""
+    shd = ctx.shd
+    q, k, v = qkv(p, x, cfg, shd)
+    B, T = x.shape[:2]
+    pos = torch.arange(T, device=x.device)[None, :].expand(B, T)
+    q, k = rope_q_k(cfg, q, k, pos)
+    o = _mix_attend(q, k, v, kind=kind, cfg=cfg, ctx=ctx)
+    return out_proj(p, o, shd)
 
 
 def attn_prefill(p, x, cfg, *, kind: str, ctx, cache):
@@ -252,12 +285,13 @@ def attn_prefill(p, x, cfg, *, kind: str, ctx, cache):
 
 def attn_decode(p, x1, cfg, *, kind: str, ctx, cache):
     """x1 [B,1,d]; ``ctx.pos`` is the absolute position of this token (an
-    int or a 0-d integer tensor)."""
+    int or a 0-d integer tensor), or of each row's token ([B]: RoPE's
+    angles, the slot written and the mask per row)."""
     shd = ctx.shd
     q, k, v = qkv(p, x1, cfg, shd)
     B = x1.shape[0]
     pos = torch.as_tensor(ctx.pos, dtype=torch.int32, device=x1.device)
-    q, k = rope_q_k(cfg, q, k, pos.reshape(1, 1).expand(B, 1))
+    q, k = rope_q_k(cfg, q, k, pos.reshape(-1, 1).expand(B, 1))
     window = cfg.window if kind == "attn_local" else 0
     cache = cache_insert(cache, k, v, pos, window=window)
     o = decode_attend(q, cache["k"], cache["v"], cache["pos"], pos,

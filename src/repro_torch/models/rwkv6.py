@@ -180,7 +180,9 @@ def rwkv_train(p, x, cfg, *, ctx, state=None, chunk: int = 64,
 
     ``impl`` names a registered variant of :data:`RWKV6_SCAN` (``ref`` /
     ``chunked`` / ``hopper``); the default keeps the chunked closed form
-    with the caller's ``chunk``.
+    with the caller's ``chunk``, which is also the train path (plain
+    torch, differentiable).  ``hopper`` has no backward: asked for a
+    gradient, it raises.
     """
     B, T, d = x.shape
     x_prev_tok = state["x_prev"] if state is not None else \
@@ -192,6 +194,12 @@ def rwkv_train(p, x, cfg, *, ctx, state=None, chunk: int = 64,
     if impl is None:
         out, S_out = rwkv_chunk(r, k, v, logw, p["u"], S_in, chunk)
     else:
+        if impl == "hopper" and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, logw)):
+            raise NotImplementedError(
+                "the hopper variant of RWKV6_SCAN (K5) has no backward "
+                "(ROADMAP B.3); train with impl=None, the chunked closed "
+                "form, as the reference does")
         scan = RWKV6_SCAN.impl_fn(RWKV6_SCAN.resolve(impl))
         out, S_out = scan(r, k, v, logw, p["u"], S_in)
     y = _gate_out(p, out, g, x, cfg)

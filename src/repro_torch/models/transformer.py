@@ -9,20 +9,30 @@ shapes) and runs the layers as a Python loop over per-layer parameter
 dicts (``params["layers"][i]``, cache ``caches[i]``), which
 :func:`layers_of` unstacks.
 
-Two entry points share the layer interpreter: :func:`prefill` (full
-prompt, fills the recurrent state or the KV cache) and
-:func:`decode_step` (one token against it).  The port runs the ``rwkv``
-mixer with its channel-mix MLP, and the global ``attn`` and
-sliding-window ``attn_local`` mixers (RoPE, GQA, an optional QKV bias)
-with the dense SwiGLU MLP; a local layer's KV cache is a ring of
-``min(s_max, window)`` slots.  Every other mixer raises
-``NotImplementedError`` (ROADMAP A.5), and so does attention in train
-mode (A.7).
+Three entry points share the layer interpreter: :func:`forward_train`
+(full sequence, no cache), :func:`prefill` (full prompt, fills the
+recurrent state or the KV cache) and :func:`decode_step` (one token
+against it).  The port runs the ``rwkv`` mixer with its channel-mix MLP,
+and the global ``attn`` and sliding-window ``attn_local`` mixers (RoPE,
+GQA, an optional QKV bias) with the dense SwiGLU MLP; a local layer's KV
+cache is a ring of ``min(s_max, window)`` slots.  Every other mixer
+raises ``NotImplementedError`` (ROADMAP A.5).
 
 Given ``layers`` (:func:`layer_fns`), each layer kind runs as a
 :class:`LayerOp` and the final norm and logits as a :class:`HeadOp`,
-custom ops whose bodies compile once and whose vmap rules run the solo
-executable once per row.
+custom ops whose bodies compile once.  A decode-mode op runs its rows in
+groups of a fixed count (:data:`DECODE_ROWS`); a decode step pads its rows
+to that count once, at its boundary, and an engine keeps its slot cache at
+it, so every row of a solo step, a static batch and an engine tick rounds
+alike.  The ops' vmap rules call an op once for all the rows of all the
+instances.
+
+In training (``Ctx.remat``, the default, as the reference wraps each
+layer cycle in ``jax.checkpoint``) each layer kind runs as a
+:class:`TrainLayer`: two executables compiled once, a forward that keeps
+no activations and a VJP that recomputes the layer, joined by an
+``autograd.Function``.  So compile time does not grow with the depth, and
+the backward holds one layer's activations at a time.
 
 ``Ctx.rwkv_impl`` carries the reference's ``rwkv_train(impl=...)``
 selection through to the entry point: ``None`` keeps the chunked closed
@@ -57,7 +67,8 @@ class Ctx:
     rwkv_chunk: int = 32
     pos: Any = None                      # decode position: int or 0-d tensor
     rwkv_impl: Optional[str] = None      # RWKV6_SCAN variant; None: rwkv_chunk
-    flash: bool = True                   # prefill attention: flash forward
+    flash: bool = True                   # flash attention (train: its VJP)
+    remat: bool = True                   # train: recompute each layer
 
 
 #: the attention mixers the port runs (global, sliding window)
@@ -181,6 +192,19 @@ def cache_specs(cfg, batch: int, s_max: int = 0) -> dict:
                                                                s_max))
 
 
+def init_row_cache(cfg, rows: int, device, s_max: int = 0) -> list:
+    """:func:`init_cache` at batch ``rows`` with a leading row axis on
+    every leaf: a leaf without a batch axis (a KV cache's slot positions)
+    is held once per row, so each row may sit at its own position (an
+    engine's slots)."""
+    caches = init_cache(cfg, rows, device, s_max)
+    for c, (mk, _) in zip(caches, layer_kinds(cfg)):
+        for k, sp in _one_layer_cache_specs(cfg, mk, rows, s_max).items():
+            if "batch" not in sp.axes:
+                c[k] = torch.stack([c[k]] * rows)
+    return caches
+
+
 def init_cache(cfg, batch: int, device, s_max: int = 0) -> list:
     """The empty cache, one dict per layer: ``{"S", "x_prev", "x_cm"}``
     (zeros) for an rwkv layer, ``{"k", "v", "pos"}`` for an attention
@@ -241,7 +265,8 @@ def _attn_layer(p, x, cfg, mixer: str, ctx: Ctx, cache):
         y, new_cache = A.attn_decode(p["mixer"], h, cfg, kind=mixer,
                                      ctx=ctx, cache=cache)
     else:
-        raise _not_ported("attention in train mode (attn_train)", "A.7")
+        y, new_cache = A.attn_train(p["mixer"], h, cfg, kind=mixer,
+                                    ctx=ctx), cache
     x = x + y
     return x + mlp(p["mlp"], rmsnorm(x, p["norm2"]), ctx.shd), new_cache
 
@@ -263,10 +288,11 @@ def _rebuild(template: dict, leaves) -> dict:
                 else next(leaves)) for k in sorted(template)}
 
 
-#: every :class:`LayerOp` made so far, by (cfg, mixer, mlp_kind, mode, shd)
-#: and the context fields that mixer reads (:func:`_ctx_key`), and every
-#: :class:`HeadOp`, by (cfg, "head", shd): steps of one config share them
-LAYER_OPS: Dict[tuple, "_RowOp"] = {}
+#: every :class:`LayerOp` and :class:`TrainLayer` made so far, by (cfg,
+#: mixer, mlp_kind, mode, shd) and the context fields that mixer reads
+#: (:func:`_ctx_key`), and every :class:`HeadOp`, by (cfg, "head", shd):
+#: steps of one config share them
+LAYER_OPS: Dict[tuple, Any] = {}
 
 
 def _ctx_key(mixer: str, ctx: Ctx) -> tuple:
@@ -278,40 +304,90 @@ def _ctx_key(mixer: str, ctx: Ctx) -> tuple:
     return ("attn", ctx.q_chunk, ctx.flash)
 
 
+#: rows of every decode-mode layer call and head call: a call of ``B``
+#: rows runs in groups of ``DECODE_ROWS``, each padded with inert rows to
+#: that count, so every product and row reduction of a decode step runs at
+#: one shape whatever the batch, and a row rounds alike in a solo step, a
+#: static batch and an engine tick
+DECODE_ROWS = 8
+
+
+def padded_rows(b: int) -> int:
+    """``b`` rows rounded up to a multiple of :data:`DECODE_ROWS`."""
+    return -(-b // DECODE_ROWS) * DECODE_ROWS
+
+
+def _pad_rows(t, rows: int, fill=0):
+    """``t`` with its leading axis padded to ``rows`` by ``fill`` (one
+    op: each eager op of a decode step costs host time)."""
+    if t.shape[0] == rows:
+        return t
+    return torch.nn.functional.pad(
+        t, (0, 0) * (t.dim() - 1) + (0, rows - t.shape[0]), value=fill)
+
+
 class _RowOp:
     """A function of ``(params, x, cache, pos)`` as a custom op,
     ``repro_torch::<label>``, whose body runs the function compiled once
     (:func:`~repro_torch.core.regions.compile_region_fn`, ``fullgraph``;
     eagerly inside ``disable_compile``), with ``fake`` giving its outputs'
-    shapes.  Its vmap rule runs the compiled body once per row of the
-    vmapped axis, at the rows' own (unbatched) shapes, through a second op,
-    ``repro_torch::<label>_rows``: one opaque node for all rows in a traced
-    graph, whose implementation loops over the rows.  So a batched replay
-    or an engine tick runs each row through the very executable a solo
-    call runs, and rounds as it does."""
+    shapes.
 
-    def __init__(self, label: str, body: Callable, fake: Callable):
+    With ``fixed_rows`` (decode-mode layers and the head) the op runs its
+    body on :data:`DECODE_ROWS` rows at a time.  The callers on the serve
+    path pad once, at the step boundary (:func:`decode_step`,
+    :meth:`HeadOp.__call__`, the engine's slot cache of
+    :func:`padded_rows` rows), so their calls arrive at a multiple of
+    :data:`DECODE_ROWS` and split into groups without a copy; a direct
+    call of another row count (``opcheck``, a test, the vmap rule's
+    folded rows) has its ``B`` rows of ``x`` and of the batched cache
+    leaves padded here with zero rows (position 0, empty KV slots).  A
+    cache leaf with no batch axis (``shared``: the
+    positions a KV cache holds) may come shared, of its spec's shape, or
+    per row with a leading batch axis; the decode position ``pos`` may be
+    0-d or one per row.  The body compiles once, at the padded shape, for
+    every ``B`` (padding inside the graph would compile it once per
+    ``B``); the padding costs an op per input and the outputs are views
+    of the padded ones.  Rows never mix in the body, and every call runs
+    it at one shape, so a row's result does not depend on ``B`` or on the
+    other rows.  The vmap rule moves the vmapped axis to the front and
+    calls ``repro_torch::<label>_rows`` once: it folds the instances'
+    rows into one batch (a shared leaf becomes per row) and calls the op
+    once, so an engine tick runs each layer once over all its slots.
+
+    Without ``fixed_rows`` (prefill layers) the rows op runs the op once
+    per instance: a prefill's products would round otherwise at another
+    batch."""
+
+    def __init__(self, label: str, body: Callable, fake: Callable,
+                 fixed_rows: bool = False, shared: tuple = ()):
         self.label = label
         self.stats = CompileStats()
         self._compiled = None
+        self.fixed_rows = fixed_rows
+        #: (cache leaf index, spec ndim) of the leaves with no batch axis
+        self.shared = dict(shared)
         self.body = body
+
+        def run_body(params, x, cache, pos):
+            if compile_disabled():
+                return body(params, x, cache, pos)
+            # one layout per shape (umem.canonical), so every caller of a
+            # shape runs one graph; one dispatch state on every call: the
+            # compiled graph's first run reaches here with ADInplaceOrView
+            # excluded, a later run not, and Dynamo guards on it (a
+            # recompile)
+            x, cache, pos = tree_map(canonical, (x, cache, pos))
+            with torch._C._AutoDispatchBelowADInplaceOrView():
+                return self._executable()(params, x, cache, pos)
 
         @torch.library.custom_op(f"repro_torch::{label}", mutates_args=())
         def op(params: List[torch.Tensor], x: torch.Tensor,
                cache: List[torch.Tensor],
                pos: Optional[torch.Tensor]) -> List[torch.Tensor]:
-            if compile_disabled():
-                outs = body(params, x, cache, pos)
-            else:
-                # one layout per shape (umem.canonical), so every caller of
-                # a shape runs one graph; one dispatch state on every call:
-                # the compiled graph's first run reaches here with
-                # ADInplaceOrView excluded, a later run not, and Dynamo
-                # guards on it (a recompile)
-                x, cache, pos = tree_map(canonical, (x, cache, pos))
-                with torch._C._AutoDispatchBelowADInplaceOrView():
-                    outs = self._executable()(params, x, cache, pos)
-            return [canonical(o) for o in outs]
+            if fixed_rows:
+                return self._fixed_rows(run_body, params, x, cache, pos)
+            return [canonical(o) for o in run_body(params, x, cache, pos)]
 
         @op.register_fake
         def _(params, x, cache, pos):
@@ -322,7 +398,9 @@ class _RowOp:
         def rows(params: List[torch.Tensor], x: torch.Tensor,
                  cache: List[torch.Tensor],
                  pos: Optional[torch.Tensor]) -> List[torch.Tensor]:
-            # x, cache and pos carry a leading row axis; params do not
+            # x, cache and pos carry a leading instance axis; params do not
+            if fixed_rows:
+                return self._folded(op, params, x, cache, pos)
             outs = [op(params, x[i].contiguous(),
                        [c[i].contiguous() for c in cache],
                        None if pos is None else pos[i].contiguous())
@@ -339,7 +417,7 @@ class _RowOp:
         def _(info, in_dims, params, x, cache, pos):
             n = info.batch_size
             if any(d is not None for d in in_dims[0]):
-                # batched parameters: one call per row
+                # batched parameters: one call per instance
                 def row(t, d, i):
                     return t if d is None else t.select(d, i).contiguous()
                 outs = [op([row(t, d, i) for t, d in zip(params, in_dims[0])],
@@ -360,6 +438,61 @@ class _RowOp:
 
         self.op = op
         self.rows = rows
+
+    def _fixed_rows(self, run_body, params, x, cache, pos):
+        """The op's outputs for ``B`` rows, the body run on groups of
+        :data:`DECODE_ROWS` rows, the last padded if ``B`` is not a
+        multiple (the class docstring)."""
+        B = x.shape[0]
+        as_shared = [j in self.shared and c.dim() == self.shared[j]
+                     for j, c in enumerate(cache)]
+        cache = [c.expand(B, *c.shape) if sh else c
+                 for c, sh in zip(cache, as_shared)]
+        if pos is not None and pos.dim() == 0:
+            pos = pos.expand(B)
+        R = DECODE_ROWS
+        groups = []
+        for g0 in range(0, B, R):
+            n = min(R, B - g0)
+            outs = run_body(
+                params, _pad_rows(x[g0:g0 + n], R, 0),
+                [_pad_rows(c[g0:g0 + n], R,
+                           -1 if j in self.shared else 0)
+                 for j, c in enumerate(cache)],
+                None if pos is None else _pad_rows(pos[g0:g0 + n], R, 0))
+            groups.append([o[:n] for o in outs])
+        outs = groups[0] if len(groups) == 1 else \
+            [torch.cat(g) for g in zip(*groups)]
+        # views of the padded outputs, with the strides of fresh tensors
+        return [outs[0]] + [o[0] if sh else o
+                            for o, sh in zip(outs[1:], as_shared)]
+
+    def _folded(self, op, params, x, cache, pos):
+        """``rows`` of a fixed-rows op: the ``n`` instances' rows (``b``
+        each) folded into one batch of ``n * b`` rows, one call of the op,
+        and the outputs unfolded."""
+        n, b = x.shape[0], x.shape[1]
+
+        def fold(t):
+            return t.reshape(n * b, *t.shape[2:])
+
+        def per_row(t):
+            # an instance's shared leaf (or position), once for each row
+            return t.repeat_interleave(b, dim=0)
+        shared_in = [j in self.shared and c.dim() == self.shared[j] + 1
+                     for j, c in enumerate(cache)]
+        flat = [per_row(c) if sh else fold(c)
+                for c, sh in zip(cache, shared_in)]
+        fpos = None if pos is None else \
+            (per_row(pos) if pos.dim() == 1 else fold(pos))
+        outs = op(params, fold(x), flat, fpos)
+
+        def unfold(t):
+            return t.reshape(n, b, *t.shape[1:])
+        res = [unfold(outs[0])]
+        for o, sh in zip(outs[1:], shared_in):
+            res.append(unfold(o)[:, 0].contiguous() if sh else unfold(o))
+        return res
 
     def _executable(self):
         if self._compiled is None:
@@ -386,7 +519,9 @@ class LayerOp(_RowOp):
     and it has no batching rule.)
 
     The op's inputs are the parameters, ``x``, the cache leaves and the
-    decode position (a 0-d tensor, or None outside decode).  Its outputs
+    decode position (a 0-d tensor or one per row, or None outside
+    decode).  A decode layer runs its rows in fixed groups
+    (:data:`DECODE_ROWS`, the :class:`_RowOp` docstring).  Its outputs
     are ``x`` and the new cache leaves, contiguous; its fake implementation
     gives each the shape, dtype and layout of the input it replaces (a
     layer maps ``x`` and its recurrent state or KV cache to tensors like
@@ -396,7 +531,8 @@ class LayerOp(_RowOp):
         impl = (ctx.rwkv_impl or "ref") if mixer == "rwkv" else \
             ("flash" if ctx.flash else "chunked")
         template = _one_layer_specs(cfg, mixer, mlp_kind)
-        self._cache_keys = tuple(_one_layer_cache_specs(cfg, mixer, 1, 1))
+        cspecs = _one_layer_cache_specs(cfg, mixer, 1, 1)
+        self._cache_keys = tuple(cspecs)
 
         def layer(params, x, cache, pos):
             p = _rebuild(template, iter(params))
@@ -406,8 +542,27 @@ class LayerOp(_RowOp):
             return [x] if nc is None else [x, *(nc[k] for k in
                                                 self._cache_keys)]
         self.layer = layer
-        super().__init__(f"layer_{mixer}_{mlp_kind}_{ctx.mode}_{impl}_"
-                         f"{len(LAYER_OPS)}", layer, _like_inputs)
+        super().__init__(
+            f"layer_{mixer}_{mlp_kind}_{ctx.mode}_{impl}_{len(LAYER_OPS)}",
+            layer, _like_inputs, fixed_rows=ctx.mode == "decode",
+            shared=tuple((j, len(sp.shape))
+                         for j, sp in enumerate(cspecs.values())
+                         if "batch" not in sp.axes))
+
+    def pad_cache(self, cache: dict, rows: int) -> dict:
+        """``cache`` (one layer's) with every batched leaf padded, or
+        sliced, to ``rows`` rows; a leaf without a batch axis stays as it
+        is, and a per-row slot-position leaf pads with empty slots."""
+        out = {}
+        for k, c in cache.items():
+            j = self._cache_keys.index(k)
+            if j in self.shared and c.dim() == self.shared[j]:
+                out[k] = c
+            elif c.shape[0] > rows:
+                out[k] = c[:rows]
+            else:
+                out[k] = _pad_rows(c, rows, -1 if j in self.shared else 0)
+        return out
 
     def __call__(self, p, x, cache=None, pos=None):
         """``(x, new cache or None)`` of one layer with parameters ``p``;
@@ -422,9 +577,10 @@ class LayerOp(_RowOp):
 
 class HeadOp(_RowOp):
     """The final norm and the logits of ``cfg`` as a custom op (a
-    :class:`_RowOp`): ``x [B, T, d] -> logits [B, T, vocab]``.  A decode
-    tick that batches its slots under ``vmap`` runs each slot's head
-    through the executable a solo decode step runs, so both round alike
+    :class:`_RowOp`): ``x [B, 1, d] -> logits [B, 1, vocab]``, its rows
+    in fixed groups (:data:`DECODE_ROWS`).  A solo decode step, a
+    prefill's last position and an engine tick that batches its slots
+    under ``vmap`` reach one executable at one shape, so they round alike
     and their greedy tokens agree."""
 
     def __init__(self, cfg, shd):
@@ -435,18 +591,23 @@ class HeadOp(_RowOp):
 
         def fake(params, x, cache, pos):
             return [x.new_empty((*x.shape[:-1], cfg.vocab))]
-        super().__init__(f"head_{len(LAYER_OPS)}", head, fake)
+        super().__init__(f"head_{len(LAYER_OPS)}", head, fake,
+                         fixed_rows=True)
         self.tied = cfg.tie_embeddings
 
     def __call__(self, params, x):
-        """Logits of ``x`` under the model's ``params`` (``x`` copied to
-        the strides of a fresh tensor, size-1 axes included: a prefill's
-        last position and a decode step's token then reach one
-        executable)."""
+        """Logits of ``x`` under the model's ``params``: ``x`` padded here
+        to :func:`padded_rows` rows, or copied to the strides of a fresh
+        tensor, size-1 axes included (a prefill's last position and a
+        decode step's token then reach one executable at one shape)."""
         emb = params["embed"]
         w = emb["tok"] if self.tied else emb["head"]
-        x = x.clone(memory_format=torch.contiguous_format)
-        return self.op([params["final_norm"], w], x, [], None)[0]
+        B = x.shape[0]
+        rows = padded_rows(B)
+        x = _pad_rows(x, rows) if rows != B else \
+            x.clone(memory_format=torch.contiguous_format)
+        logits = self.op([params["final_norm"], w], x, [], None)[0]
+        return logits if rows == B else logits[:B]
 
 
 def layer_fns(cfg, ctx: Ctx) -> dict:
@@ -467,6 +628,107 @@ def layer_fns(cfg, ctx: Ctx) -> dict:
         LAYER_OPS[key] = HeadOp(cfg, ctx.shd)
     fns["head"] = LAYER_OPS[key]
     return fns
+
+
+class _Remat(torch.autograd.Function):
+    """One layer of a :class:`TrainLayer`: the forward keeps only the
+    layer's input and parameters; the backward recomputes the layer inside
+    its compiled VJP."""
+
+    @staticmethod
+    def forward(ctx, layer, x, *params):
+        ctx.layer = layer
+        ctx.save_for_backward(x, *params)
+        return layer.forward(list(params), x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, *params = ctx.saved_tensors
+        *dparams, dx = ctx.layer.vjp(params, x, dy.contiguous())
+        return (None, dx, *dparams)
+
+
+class TrainLayer:
+    """One layer kind of ``cfg`` in train mode as two executables compiled
+    once (:func:`~repro_torch.core.regions.compile_region_fn`; eager inside
+    ``disable_compile``): ``forward(params, x) -> y``, and ``vjp(params,
+    x, dy) -> [*dparams, dx]``, ``torch.func.vjp`` of the same layer,
+    which recomputes it.  ``__call__`` joins them in an
+    ``autograd.Function`` (rematerialisation: the reference's
+    ``jax.checkpoint`` around each layer cycle)."""
+
+    def __init__(self, cfg, mixer: str, mlp_kind: str, ctx: Ctx):
+        template = _one_layer_specs(cfg, mixer, mlp_kind)
+        ctx = dataclasses.replace(ctx, mode="train")
+        label = f"layer_{mixer}_{mlp_kind}_train_{len(LAYER_OPS)}"
+
+        def fwd(params, x):
+            p = _rebuild(template, iter(params))
+            return layer_fwd(p, x, cfg, mixer, mlp_kind, ctx)[0]
+
+        def vjp(params, x, dy):
+            _, pull = torch.func.vjp(fwd, params, x)
+            dparams, dx = pull(dy)
+            return [*dparams, dx]
+        self.label = label
+        self.fwd_fn, self.vjp_fn = fwd, vjp
+        self.stats = CompileStats()          # the forward's
+        self.vjp_stats = CompileStats()
+        self._fwd = self._vjp = None
+
+    def forward(self, params, x):
+        if compile_disabled():
+            return self.fwd_fn(params, x)
+        if self._fwd is None:
+            self._fwd = compile_region_fn(self.fwd_fn, self.label,
+                                          stats=self.stats)
+        return self._fwd(params, canonical(x))
+
+    def vjp(self, params, x, dy):
+        if compile_disabled():
+            return self.vjp_fn(params, x, dy)
+        if self._vjp is None:
+            self._vjp = compile_region_fn(self.vjp_fn, self.label + "_vjp",
+                                          stats=self.vjp_stats)
+        return self._vjp(params, canonical(x), canonical(dy))
+
+    def __call__(self, p, x):
+        """The layer's output for parameters ``p`` (a dict) and ``x``."""
+        return _Remat.apply(self, x, *_leaves(p))
+
+
+def train_layer_fns(cfg, ctx: Ctx) -> dict:
+    """``{(mixer, mlp_kind): TrainLayer}`` for the layer kinds of ``cfg``,
+    made once per config but its depth and the context fields each mixer
+    reads (kept in :data:`LAYER_OPS`)."""
+    fns = {}
+    # a layer's body reads the widths, not the depth: models of one width
+    # and another depth share its executables
+    one = dataclasses.replace(cfg, n_layers=1)
+    for mk, lk in dict.fromkeys(layer_kinds(cfg)):
+        key = (one, mk, lk, "train", ctx.shd, _ctx_key(mk, ctx))
+        if key not in LAYER_OPS:
+            LAYER_OPS[key] = TrainLayer(one, mk, lk, ctx)
+        fns[(mk, lk)] = LAYER_OPS[key]
+    return fns
+
+
+def forward_train(params, batch, cfg, ctx: Ctx):
+    """batch: ``tokens`` [B, S] -> (logits [B, S, vocab], aux).  Each layer
+    is rematerialised under ``ctx.remat`` (:class:`TrainLayer`), else it
+    runs inline under autograd.  ``aux`` is the MoE load-balancing loss:
+    0, since MoE is not ported (ROADMAP A.5.5)."""
+    ctx = dataclasses.replace(ctx, mode="train")
+    layers = train_layer_fns(cfg, ctx) if ctx.remat else None
+    x = embed(params["embed"], batch["tokens"], cfg, ctx.shd)
+    for i, (mk, lk) in enumerate(layer_kinds(cfg)):
+        if layers is None:
+            x = layer_fwd(params["layers"][i], x, cfg, mk, lk, ctx)[0]
+        else:
+            x = layers[(mk, lk)](params["layers"][i], x)
+    x = rmsnorm(x, params["final_norm"])
+    return (lm_logits(params["embed"], x, cfg, ctx.shd),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _run_layers(params, x, cfg, ctx: Ctx, caches=None, layers=None):
@@ -494,14 +756,37 @@ def prefill(params, batch, cfg, ctx: Ctx, caches, layers=None):
 
 
 def decode_step(params, token, caches, pos, cfg, ctx: Ctx, layers=None):
-    """token [B] int; pos int or 0-d int tensor (moved to the token's
-    device once, for every layer).  Returns (logits [B,1,V], caches).
-    ``layers``: :func:`layer_fns` of ``cfg`` in decode mode, or None."""
+    """token [B] int; pos an int, a 0-d int tensor or one per row [B]
+    (moved to the token's device once, for every layer).  Returns (logits
+    [B,1,V], caches).  ``layers``: :func:`layer_fns` of ``cfg`` in decode
+    mode, or None.
+
+    With ``layers`` the step pads its rows once, here, to
+    :func:`padded_rows` (``x``, the batched cache leaves and a per-row
+    ``pos``; a leaf without a batch axis stays shared), runs every layer
+    and the head on them, and slices the logits and the cache back to
+    ``B`` rows: every op of the step then runs at one shape, whatever
+    ``B``."""
     x = embed(params["embed"], token[:, None], cfg, ctx.shd)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    B = x.shape[0]
+    rows = B if layers is None else padded_rows(B)
+    if rows != B:
+        x = _pad_rows(x, rows)
+        if pos.dim():
+            pos = _pad_rows(pos, rows)
+        if caches is not None:
+            caches = [layers[kind].pad_cache(c, rows)
+                      for kind, c in zip(layer_kinds(cfg), caches)]
     ctx = dataclasses.replace(ctx, mode="decode", pos=pos)
     x, caches = _run_layers(params, x, cfg, ctx, caches, layers)
-    return _head(params, x, cfg, ctx, layers), caches
+    logits = _head(params, x, cfg, ctx, layers)
+    if rows != B:
+        logits = logits[:B]
+        if caches is not None:
+            caches = [layers[kind].pad_cache(c, B)
+                      for kind, c in zip(layer_kinds(cfg), caches)]
+    return logits, caches
 
 
 def _head(params, x, cfg, ctx: Ctx, layers=None):

@@ -8,25 +8,27 @@ The engine runs on the serving spine of :mod:`repro_torch.launch.serve`:
   distinct length owns one program that every request of that length
   replays);
 * the decode tick is one captured program per engine: ``DECODE_SLOTS``,
-  the ``DECODE_STEP`` body (``impl_fn("ref")``) under ``torch.func.vmap``
-  over the slot axis with a per-slot position vector and the active mask
-  as program inputs, then the same ``KV_APPEND`` commit;
+  the ``DECODE_STEP`` body (``impl_fn("ref")``) called once on the slot
+  rows with a position per row and the active mask as program inputs,
+  then the same ``KV_APPEND`` commit;
 * ``SLOT_ADMIT`` scatters an admitted request's gathered cache into its
-  row of the stacked slot cache, a region, so admission is accounted like
+  row of the slot cache, a region, so admission is accounted like
   everything else.
 
-Under ``vmap`` each layer runs through its
-:class:`~repro_torch.models.transformer.LayerOp`, and the final norm and
-logits through the :class:`~repro_torch.models.transformer.HeadOp`, whose
-vmap rules call the compiled solo executable once per slot at batch-1
-shapes: a tick rounds as a solo decode step does, so its greedy tokens
-are the solo step's.  Only the embedding (a lookup and an elementwise
-scale) and the argmax run batched over the slots: neither rounds
-otherwise at another batch.  So a tick costs about
-``n_slots`` solo passes, and inactive slots compute too (frozen shapes,
-as in the reference); inside
-``DECODE_SLOTS`` an inactive slot keeps its previous token, and its
-garbage row is overwritten whole by the next ``SLOT_ADMIT``.
+The slot cache is one batch of ``transformer.padded_rows(n_slots)`` rows
+(:func:`~repro_torch.models.transformer.init_row_cache`: the slot
+positions of a KV cache, shared by a static batch, are held per row),
+where the reference stacks batch-1 caches.  So a tick runs each layer
+once over all its slots, each row at its own position, and every
+decode-mode op already gets a multiple of ``transformer.DECODE_ROWS``
+rows: a row rounds as it does in a solo decode step, whose rows are
+padded to that count too, and its greedy tokens are the solo step's.
+Engines of up to ``DECODE_ROWS`` slots share one tick executable.  The
+embedding (a lookup and an elementwise scale) and the argmax do not mix
+rows either.  The rows past ``n_slots`` and the inactive slots compute
+too (frozen shapes, as in the reference); inside ``DECODE_SLOTS`` an
+inactive row keeps its previous token, and its garbage row is overwritten
+whole by the next ``SLOT_ADMIT``.
 
 Per-request state machine: QUEUED -> PREFILL (prefilled, its cache parked
 in the :class:`~repro_torch.serve.paged_kv.PagedKVCache`) -> DECODE (in a
@@ -114,11 +116,13 @@ def batch_for_prompt(prompt: np.ndarray, device) -> dict:
 def slot_write(slot_cache: List[torch.Tensor], req_cache: List[torch.Tensor],
                slot: torch.Tensor) -> List[torch.Tensor]:
     """``slot_cache`` with row ``slot`` (a 0-d integer tensor) of every leaf
-    replaced by the batch-1 leaf of ``req_cache``: one opaque node in a
-    compiled graph, whose copies are ATen's (a graph of one generated
-    kernel per leaf costs a compile for nothing)."""
+    replaced by the batch-1 leaf of ``req_cache`` (a leaf without a batch
+    axis fills the row whole): one opaque node in a compiled graph, whose
+    copies are ATen's (a graph of one generated kernel per leaf costs a
+    compile for nothing)."""
     return [sc.index_copy(0, slot.reshape(1).to(sc.device, torch.long),
-                          rc[None].to(sc.dtype))
+                          (rc if rc.dim() == sc.dim() else rc[None])
+                          .to(sc.dtype))
             for sc, rc in zip(slot_cache, req_cache)]
 
 
@@ -145,9 +149,10 @@ def make_engine_regions(cfg, params, *,
 
     @region("DECODE_SLOTS", ledger=ledger)
     def decode_slots(tok, cache, pos, active):
-        # the DECODE_STEP body per slot at batch 1, its own position
-        new_tok, new_cache = torch.func.vmap(raw_decode)(tok, cache, pos)
-        return torch.where(active[:, None], new_tok, tok), new_cache
+        # the DECODE_STEP body once on all the slot rows, each at its own
+        # position
+        new_tok, new_cache = raw_decode(tok, cache, pos)
+        return torch.where(active, new_tok, tok), new_cache
 
     @region("SLOT_ADMIT", ledger=ledger, offloaded=False)
     def slot_admit(slot_cache, req_cache, slot_idx):
@@ -188,14 +193,15 @@ class ServeEngine:
         self._slot_admit = self.engine_regions.slot_admit
         self.selector = executor.policy.selector
 
-        # slot state: batch-1 caches stacked [n_slots, 1, ...], and the
-        # host-side token / position / active vectors (tick inputs)
-        base = T.init_cache(cfg, 1, self.device, max_len)
-        self.slot_cache = pytree.tree_map(
-            lambda x: torch.stack([x] * n_slots), base)
-        self._tok = np.zeros(n_slots, np.int32)
-        self._pos = np.zeros(n_slots, np.int32)
-        self._active = np.zeros(n_slots, bool)
+        # slot state: one cache of padded_rows(n_slots) rows, and the
+        # host-side token / position / active vectors of all its rows
+        # (tick inputs; the rows past n_slots stay inactive)
+        self.rows = T.padded_rows(n_slots)
+        self.slot_cache = T.init_row_cache(cfg, self.rows, self.device,
+                                           max_len)
+        self._tok = np.zeros(self.rows, np.int32)
+        self._pos = np.zeros(self.rows, np.int32)
+        self._active = np.zeros(self.rows, bool)
         self.slot_req: List[Optional[Request]] = [None] * n_slots
 
         # ONE captured tick program; positions and the active mask are
@@ -220,7 +226,7 @@ class ServeEngine:
 
     def _tick_inputs(self):
         d = self.device
-        return (torch.as_tensor(self._tok.reshape(-1, 1).copy(), device=d),
+        return (torch.as_tensor(self._tok.copy(), device=d),
                 self.slot_cache, torch.as_tensor(self._pos, device=d),
                 torch.as_tensor(self._active, device=d))
 
@@ -318,7 +324,7 @@ class ServeEngine:
         now = time.perf_counter()
         for s in np.nonzero(self._active)[0]:
             req = self.slot_req[s]
-            t = int(tok_np[s, 0])
+            t = int(tok_np[s])
             req.tokens.append(t)
             req.token_times.append(now)
             req.pos += 1
@@ -351,8 +357,8 @@ class ServeEngine:
                 break
             self._prefill(self.queued.popleft())
             did = True
-        while self.waiting and not self._active.all():
-            slot = int(np.nonzero(~self._active)[0][0])
+        while self.waiting and not self._active[:self.n_slots].all():
+            slot = int(np.nonzero(~self._active[:self.n_slots])[0][0])
             self._admit(self.waiting.popleft(), slot)
             did = True
         if self._active.any():

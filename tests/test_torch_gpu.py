@@ -677,3 +677,115 @@ def test_offload_kv_on_card_migrates_in_for_a_compiled_region(cuda,
     row = ex.ledger.regions["kv_scale"]
     assert row.staging_bytes == 2 * cache[0]["k"].numel() * 4
     assert row.staging_s > 0 and (row.device_calls, row.host_calls) == (1, 0)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "rwkv6-7b"])
+def test_compiled_decode_rows_are_bit_for_bit_their_solo_rows_on_card(
+        cuda, compiled, arch):
+    """The card twin of tests/test_torch_engine_rows.py: every compiled
+    decode layer kind under ``vmap`` at n = 1..4 rows, and the compiled
+    head at n = 1..4 rows, give each row bit for bit its n = 1 output
+    (bf16, reduced)."""
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    cfg = reduced(get_config(arch))
+    params = T.init(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    ops = T.layer_fns(cfg, T.Ctx(mode="decode"))
+    kinds = T.layer_kinds(cfg)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n_rows = 4
+    pos = torch.tensor([5, 9, 6, 12], dtype=torch.int32, device=cuda)
+    for kind in dict.fromkeys(kinds):
+        layer = kinds.index(kind)
+        op = ops[kind]
+        cache = T.init_cache(cfg, 1, cuda, 24)[layer]
+        leaves = []
+        for k in op._cache_keys:
+            c = cache[k]
+            if k == "pos":
+                slots = torch.arange(c.shape[0], dtype=torch.int32,
+                                     device=cuda)
+                leaves.append(torch.stack([torch.where(slots < p, slots, -1)
+                                           for p in pos.tolist()]))
+            else:
+                leaves.append(torch.randn((n_rows, *c.shape), generator=g,
+                                          device=cuda).to(c.dtype))
+        x = torch.randn((n_rows, 1, 1, cfg.d_model), generator=g,
+                        device=cuda).to(torch.bfloat16)
+        p = T._leaves(params["layers"][layer])
+        solo = [op.op(p, x[i], [c[i] for c in leaves], pos[i])
+                for i in range(n_rows)]
+        for n in range(1, n_rows + 1):
+            got = torch.func.vmap(op.op, in_dims=(None, 0, [0] * len(leaves),
+                                                  0))(
+                p, x[:n], [c[:n] for c in leaves], pos[:n])
+            for i in range(n):
+                for a, b in zip(got, solo[i]):
+                    assert torch.equal(a[i], b), (kind, n, i)
+    hx = torch.randn((n_rows, 1, cfg.d_model), generator=g,
+                     device=cuda).to(torch.bfloat16)
+    solo = [ops["head"](params, hx[i:i + 1]) for i in range(n_rows)]
+    for n in range(1, n_rows + 1):
+        got = ops["head"](params, hx[:n])
+        for i in range(n):
+            assert torch.equal(got[i:i + 1], solo[i]), ("head", n, i)
+
+
+def test_compiled_train_step_matches_eager_on_card(cuda, compiled):
+    """Reduced tinyllama-1.1b in f32 on the card (TF32 off), compiled
+    (each layer kind's forward and VJP) against eager
+    (``disable_compile``) on the same inputs: the loss within 1e-5
+    relative; each gradient leaf's distance to the f64 gradient (an eager
+    f64 run of the same model) within the larger of 4 times the eager f32
+    leaf's and 1e-5 of the leaf's largest magnitude; two AdamW steps on
+    the same gradients, every parameter within 1e-6 of its leaf's largest
+    magnitude."""
+    import dataclasses
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as S
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")),
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+        c64 = dataclasses.replace(cfg, param_dtype="float64",
+                                  compute_dtype="float64")
+        params = T.init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                        cuda)
+        batch = S.demo_batch(torch.Generator(device=cuda).manual_seed(1),
+                             cfg, 2, 64, cuda)
+        ctx = T.Ctx(mode="train")
+        (lc, _), gc = S.value_and_grad(params, batch, cfg, ctx)
+        with disable_compile():
+            (le, _), ge = S.value_and_grad(params, batch, cfg, ctx)
+            _, g64 = S.value_and_grad(
+                pytree.tree_map(lambda t: t.double(), params), batch, c64,
+                ctx)
+        assert abs(float(lc) - float(le)) <= 1e-5 * abs(float(le))
+
+        def rel(a, b):
+            return float((a.double() - b.double()).abs().max()
+                         / b.double().abs().max())
+        for a, b, r in zip(pytree.tree_leaves(gc), pytree.tree_leaves(ge),
+                           pytree.tree_leaves(g64)):
+            assert rel(a, r) <= max(4 * rel(b, r), 1e-5)
+        opt_cfg = adamw.AdamWConfig()
+        pc = pe = params
+        sc = se = adamw.init_state(params, opt_cfg)
+        for _ in range(2):
+            pc, sc, _ = adamw.apply_updates(pc, ge, sc, opt_cfg)
+            with disable_compile():
+                pe, se, _ = adamw.apply_updates(pe, ge, se, opt_cfg)
+        for a, b in zip(pytree.tree_leaves(pc), pytree.tree_leaves(pe)):
+            assert rel(a, b) <= 1e-6
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    layers = [op for op in T.LAYER_OPS.values()
+              if isinstance(op, T.TrainLayer) and op.stats.calls]
+    assert layers and all(op.stats.compiles == 1 for op in layers)

@@ -56,7 +56,11 @@ def test_walk_finds_the_slice():
                  "repro_torch.configs.qwen2_5_32b",
                  "repro_torch.serve", "repro_torch.serve.paged_kv",
                  "repro_torch.serve.scheduler",
-                 "repro_torch.serve.traffic"):
+                 "repro_torch.serve.traffic",
+                 "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint.ckpt", "repro_torch.runtime.fault",
+                 "repro_torch.launch.train",
+                 "repro_torch.launch.compile_depth"):
         assert name in MODULES
 
 
@@ -119,6 +123,12 @@ def test_serve_cli_defaults_to_cuda_and_raises_without_it(no_cuda):
     from repro_torch.launch.serve import main
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--reduced", "--prompt-len", "8", "--gen", "2"])
+
+
+def test_train_cli_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from repro_torch.launch.train import main
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--reduced", "--steps", "1"])
 
 
 def test_discrete_policy_raises_without_cuda(no_cuda):
