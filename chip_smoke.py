@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--only serve-hybrid,serve-moe,...]
 
 Run from the root of a checkout.  Phases, each printing its own lines:
 
@@ -73,6 +73,27 @@ Run from the root of a checkout.  Phases, each printing its own lines:
    and 1 of its 28 layers and ``qwen2.5-32b`` (a QKV bias) at full width
    and 1 of its 64 layers, 8 tokens each, compiled, their tokens against
    the uncaptured path;
+10b. ``[serve-hybrid]``: ``recurrentgemma-9b`` at full width and the
+   first 3 of its 38 layers (one cycle: two RG-LRU layers and a local
+   attention layer; every weight drawn at the full depth's init scale),
+   4 x 1024 prompt, 32 greedy tokens, compiled and eagerly; the compiled
+   prefill and decode step against the eager ones (logits, k/v and conv
+   windows within the tinyllama envelope; each compiled layer alone on
+   the eager layer's input, its RG-LRU state included); ``[serve-moe]``:
+   ``qwen3-moe-30b-a3b`` (128 experts, top-8) at 2 of its 48 layers and
+   ``llama4-scout-17b-a16e`` (16 experts, top-1, a shared expert) at 1 of
+   its 48, full width, 8 tokens, compiled, held to eager, with the
+   prefill's capacity drops and expert loads; the rows check of every new
+   decode layer kind; ``[oversub-moe]``: one qwen3-moe-30b-a3b layer's
+   experts (1.2 GB) in pinned host memory through ``ExpertPager`` and
+   ``moe_decode_paged``, 32 tokens, unbudgeted and under budgets at
+   ratios 1, 2, 4 (and 4 with the lookahead off), every output bit for
+   bit the unbudgeted run's, which is held to the dense ``moe_ref``.
+   These three phases are compile-bound: a child process
+   (``chip_smoke.py --only ...``, at the lowest CPU priority) runs them
+   once from phase 3 on, so that their compiles land in the on-disk
+   Inductor and Triton caches, and this process runs them again after
+   ``[serve-attn]`` (the readings printed are this process's);
 11. ``[engine]``: ``gemma3-1b`` at full width and depth (26 layers, 5:1
    local:global, random bf16 weights from ``--seed``) through the
    continuous-batching engine (``repro_torch.serve.ServeEngine``: 4
@@ -119,11 +140,14 @@ it is traced; on every card path, capture included, that count must stay
 counts too, and must stay 0: every region runs compiled.  Every compiled
 executable recompiles at most twice over the run.
 
-The last line is ``{"ok": true, "device": {...}}``.  Nothing is caught: a
+The last line is ``{"ok": true, "device": {...}}``; ``--only`` runs the
+named phases alone (a partial run, which ends with a ``partial`` line
+instead).  Nothing is caught: a
 failed phase ends the run with a non-zero exit code and no result line.
 Without CUDA, or outside a checkout, it exits non-zero at once.
 """
 import argparse
+import atexit
 import collections
 import dataclasses
 import json
@@ -181,6 +205,43 @@ SERVE_ATTN = dict(batch=4, prompt_len=1024, gen=32, llama_gen=8,
 ENGINE = dict(slots=4, page_tokens=64, requests=16, rate=0.5,
               prompt_lens=(512, 1024), gen_lens=(1, 16, 32), sub=8,
               rwkv_layers=8, rwkv_requests=8, rwkv_gen_lens=(1, 8, 16))
+# [serve-hybrid]: recurrentgemma-9b at full width and the first `layers`
+# of its 38 (one layer cycle: rglru, rglru, attn_local), 4 x 1024 prompt,
+# 32 greedy tokens, compiled and eager: each layer kind compiles once, but
+# every step graph grows by a layer op a layer, and four of them compile
+# (the captured prefill and decode, the uncaptured ones)
+SERVE_HYBRID = dict(arch="recurrentgemma-9b", layers=3, batch=4,
+                    prompt_len=1024, gen=32)
+# [serve-moe]: qwen3-moe-30b-a3b (128 experts, top-8; 1.25 GB a layer) at
+# 2 of its 48 layers and llama4-scout-17b-a16e (16 experts, top-1, a
+# shared expert; 4.40 GB a layer) at 1 of its 48, full width, 4 x 1024
+# prompt, 8 greedy tokens, compiled, held to eager
+SERVE_MOE = dict(batch=4, prompt_len=1024, gen=8,
+                 models=(("qwen3-moe-30b-a3b", 2),
+                         ("llama4-scout-17b-a16e", 1)))
+# [oversub-moe]: one qwen3-moe-30b-a3b layer's experts (128 slabs of
+# 9.44 MB) in pinned host memory, `tokens` seeded bf16 hidden states of
+# batch 1 through moe_decode_paged: unbudgeted, then under a MemoryBudget
+# at each ratio, then at the last ratio with the lookahead off
+OVERSUB_MOE = dict(arch="qwen3-moe-30b-a3b", tokens=32,
+                   ratios=(1.0, 2.0, 4.0))
+# the pager's bf16 output against the port's dense moe_ref on the card,
+# of max(1, max|ref|): the two sum the experts in another order, and the
+# dense oracle rounds every expert's product in one batched matmul
+MOE_REF_TOL = 2e-2
+# [serve-hybrid], each compiled prefill layer alone against the eager layer
+# on the eager layer's input, every output (x, and h, conv or k, v), of
+# max(1, max|x|): both run the same cuBLAS products, and the f32
+# elementwise math rounds in another order, so an output may round to the
+# next bf16 value (2^-8 of its magnitude): 5 such steps of the largest.
+# Printed beside it, not held, as is an RG-LRU layer's state h in the
+# whole-model checks (which hold the logits, k/v and the conv windows to
+# ATTN_MODEL_TOL in bf16 and in f32): at this init the recurrence gates
+# sit near 0 or 1 (|W_a x| ~ 300), a one-ulp change of a layer's input
+# tips some of them, and h (an average over up to 1024 steps, whose
+# sqrt(1 - a^2) cancels as a nears 1) then moves by O(|h|) in those
+# channels
+HYBRID_LAYER_TOL = 2e-2
 # the [train] phase: tinyllama-1.1b at full width, batch x seq tokens a
 # step, `steps` timed steps after one warm-up; the checks run at
 # `check_layers` layers (full width), the supervised run `sup_steps` steps
@@ -544,6 +605,64 @@ def envelope_err(a, b):
     return err, STEP_ENVELOPE * max(1.0, a.abs().max().item())
 
 
+def rows_check(args, dev, arch, cfg, params, max_len):
+    """One decode layer of each kind of ``cfg``, compiled, and then the
+    head, fed n = 1..4 rows built from the same seeded rows (each row at
+    its own position, the engine's cache shapes): each row's output must
+    equal its n = 1 output bit for bit.  Prints the first op that parts,
+    if one does, and raises."""
+    from repro_torch.models import transformer as T
+    ops = T.layer_fns(cfg, T.Ctx(mode="decode"))
+    kinds = T.layer_kinds(cfg)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    n_rows = ENGINE["slots"]
+    pos = torch.tensor([max_len // 2 + 7 * i for i in range(n_rows)],
+                       dtype=torch.int32, device=dev)
+    cases = []
+    for kind in dict.fromkeys(kinds):
+        layer = kinds.index(kind)
+        op = ops[kind]
+        cache = T.init_cache(cfg, 1, dev, max_len)[layer]
+        leaves = []
+        for k in op._cache_keys:
+            c = cache[k]
+            if k == "pos":
+                sl = torch.arange(c.shape[0], dtype=torch.int32,
+                                  device=dev)
+                leaves.append(torch.stack([torch.where(sl < p, sl, -1)
+                                           for p in pos.tolist()]))
+            else:
+                leaves.append(torch.randn((n_rows, *c.shape), generator=g,
+                                          device=dev).to(c.dtype))
+        # the stream a layer op takes: f32, here rounded to bf16 (a carry)
+        x = torch.randn((n_rows, 1, 1, cfg.d_model), generator=g,
+                        device=dev).to(torch.bfloat16).float()
+        p = T._leaves(params["layers"][layer])
+        cases.append((f"layer {layer} {kind[0]}"
+                      + ("+moe" if kind[1] == "moe" else ""),
+                      lambda idx, op=op, p=p, x=x, c=leaves: torch.func.vmap(
+                          op.op, in_dims=(None, 0, [0] * len(c), 0))(
+                          p, x[idx], [t[idx] for t in c], pos[idx])))
+    hx = torch.randn((n_rows, 1, cfg.d_model), generator=g,
+                     device=dev).to(torch.bfloat16).float()
+    cases.append(("head", lambda idx: [ops["head"](params, hx[idx])]))
+    for what, run in cases:
+        solo = [run([i]) for i in range(n_rows)]
+        for n in range(2, n_rows + 1):
+            got = run(list(range(n)))
+            for i in range(n):
+                for j, (a, b) in enumerate(zip(got, solo[i])):
+                    if not torch.equal(a[i], b[0]):
+                        err = (a[i].float() - b[0].float()).abs().max()
+                        raise AssertionError(
+                            f"[engine] rows: {arch}: {what} (output {j})"
+                            f" parts first, at n={n}, row {i}: max |diff|"
+                            f" {float(err)}")
+    print(f"[engine] rows: {arch}: "
+          + ", ".join(w for w, _ in cases) + f" at n = 1..{n_rows} rows "
+          "(compiled): every row bit for bit its n = 1 output: passed")
+
+
 def engine_phase(args, dev, stamp):
     """``[engine]``: gemma3-1b at full width and depth, bf16, random
     weights from ``--seed``, served through ``ServeEngine`` (4 slots,
@@ -621,60 +740,6 @@ def engine_phase(args, dev, stamp):
         check_plain("[engine] solo oracle")
         return out
 
-    def rows_check(arch, cfg, params, max_len):
-        """One decode layer of each kind of ``cfg``, compiled, and then the
-        head, fed n = 1..4 rows built from the same seeded rows (each row
-        at its own position, the engine's cache shapes): each row's output
-        must equal its n = 1 output bit for bit.  Prints the first op that
-        parts, if one does, and raises."""
-        ops = T.layer_fns(cfg, T.Ctx(mode="decode"))
-        kinds = T.layer_kinds(cfg)
-        g = torch.Generator(device=dev).manual_seed(args.seed + 5)
-        n_rows = E["slots"]
-        pos = torch.tensor([max_len // 2 + 7 * i for i in range(n_rows)],
-                           dtype=torch.int32, device=dev)
-        cases = []
-        for kind in dict.fromkeys(kinds):
-            layer = kinds.index(kind)
-            op = ops[kind]
-            cache = T.init_cache(cfg, 1, dev, max_len)[layer]
-            leaves = []
-            for k in op._cache_keys:
-                c = cache[k]
-                if k == "pos":
-                    sl = torch.arange(c.shape[0], dtype=torch.int32,
-                                      device=dev)
-                    leaves.append(torch.stack([torch.where(sl < p, sl, -1)
-                                               for p in pos.tolist()]))
-                else:
-                    leaves.append(torch.randn((n_rows, *c.shape), generator=g,
-                                              device=dev).to(c.dtype))
-            x = torch.randn((n_rows, 1, 1, cfg.d_model), generator=g,
-                            device=dev).to(torch.bfloat16)
-            p = T._leaves(params["layers"][layer])
-            cases.append((f"layer {layer} {kind[0]}", lambda idx, op=op,
-                          p=p, x=x, c=leaves: torch.func.vmap(
-                              op.op, in_dims=(None, 0, [0] * len(c), 0))(
-                              p, x[idx], [t[idx] for t in c], pos[idx])))
-        hx = torch.randn((n_rows, 1, cfg.d_model), generator=g,
-                         device=dev).to(torch.bfloat16)
-        cases.append(("head", lambda idx: [ops["head"](params, hx[idx])]))
-        for what, run in cases:
-            solo = [run([i]) for i in range(n_rows)]
-            for n in range(2, n_rows + 1):
-                got = run(list(range(n)))
-                for i in range(n):
-                    for j, (a, b) in enumerate(zip(got, solo[i])):
-                        if not torch.equal(a[i], b[0]):
-                            err = (a[i].float() - b[0].float()).abs().max()
-                            raise AssertionError(
-                                f"[engine] rows: {arch}: {what} (output {j})"
-                                f" parts first, at n={n}, row {i}: max |diff|"
-                                f" {float(err)}")
-        print(f"[engine] rows: {arch}: "
-              + ", ".join(w for w, _ in cases) + f" at n = 1..{n_rows} rows "
-              "(compiled): every row bit for bit its n = 1 output: passed")
-
     def tick_line(m, ex):
         srv = ex.report()["serve"]
         row = ex.ledger.regions["DECODE_SLOTS"]
@@ -744,7 +809,7 @@ def engine_phase(args, dev, stamp):
     line(f"gemma3-1b unified, {E['slots']} slots, {E['requests']} requests "
          f"at {E['rate']} a tick, prompts {E['prompt_lens']}, gens "
          f"{E['gen_lens']}", m, ex, kv, solo_tps)
-    rows_check("gemma3-1b", gcfg, gparams, max_len)
+    rows_check(args, dev, "gemma3-1b", gcfg, gparams, max_len)
     one_slot(gcfg, gparams, regions, lambda: make_traffic(
         args.seed, E["requests"], gcfg.vocab, arrival_rate=E["rate"],
         prompt_lens=E["prompt_lens"], gen_lens=E["gen_lens"]), max_len,
@@ -870,7 +935,7 @@ def engine_phase(args, dev, stamp):
         args.seed, E["rwkv_requests"], rcfg.vocab, arrival_rate=E["rate"],
         prompt_lens=E["prompt_lens"], gen_lens=E["rwkv_gen_lens"]), rmax,
         oracle, "rwkv6-7b", m, ex, m["tokens"] / solo_wall, gate=False)
-    rows_check("rwkv6-7b", rcfg, rparams, rmax)
+    rows_check(args, dev, "rwkv6-7b", rcfg, rparams, rmax)
     impl_counts = ex.ledger.regions["PREFILL"].impl_counts
     print(f"[engine] rwkv6-7b: K5 launches over the engine run {k5} (warm-up"
           f" and captures included; {rcfg.n_layers} a prefill); measured "
@@ -879,6 +944,430 @@ def engine_phase(args, dev, stamp):
         raise AssertionError("[engine] rwkv6-7b's engine run launched no K5")
     del engine, ex, kv, rparams, rregions
     return k5
+
+
+def draw_cut(cfg, keep, seed, dev):
+    """(``cfg`` cut to its first ``keep`` layers, random parameters from
+    ``seed`` on the card): every stacked weight is drawn at the scale of
+    the full depth (the init's law for a stacked weight is 1/sqrt(its
+    layer cycles), so a model drawn at the cut depth would be another,
+    steeper model), and only the kept layers are made.  ``keep`` is a
+    multiple of the layer cycle."""
+    from repro_torch.core.umem import tree_map
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    cyc, n_full, _ = T.layer_plan(cfg)
+    if keep % len(cyc) or not 0 < keep <= n_full * len(cyc):
+        raise ValueError(f"keep {keep} is not a whole number of cycles")
+    cut = dataclasses.replace(cfg, n_layers=keep)
+    specs = T.param_specs(cut)
+    scale = 1.0 / math.sqrt(n_full)
+    specs["cycles"] = tree_map(
+        lambda sp: dataclasses.replace(sp, scale=scale)
+        if sp.init == "normal" and sp.scale is None else sp, specs["cycles"])
+    t = init_params(torch.Generator(device=dev).manual_seed(seed), specs, dev)
+    return cut, {"embed": t["embed"], "layers": T.layers_of(cut, t),
+                 "final_norm": t["final_norm"]}
+
+
+def rel_err(got, want):
+    """max |got - want| / max(1, max |want|)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max()
+            / max(1.0, want.abs().max().item())).item()
+
+
+def serve_cut(tag, args, dev, arch, keep, B, P, gen, eager=False):
+    """Serve ``arch`` at full width and its first ``keep`` layers
+    (:func:`draw_cut`), ``B`` x ``P`` prompt tokens and ``gen`` greedy
+    tokens, through the captured prefill and decode programs under the
+    unified policy, compiled (a warm-up replay first, then one timed
+    request batch); with ``eager`` the same again eagerly; the uncaptured
+    path's tokens equal to the replay's; the compiled prefill (logits and
+    every layer's cache leaves) and one compiled decode step's logits held
+    to the same functions run eagerly within ``ATTN_MODEL_TOL`` (bf16).
+    Returns (cfg, params, batch, make_cache)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.ledger import Ledger
+    from repro_torch.core.regions import (Executor, StaticSelector,
+                                          UnifiedPolicy, disable_compile)
+    from repro_torch.core.umem import (MemSpace, tree_leaves, tree_map,
+                                      tree_place)
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import param_count
+    full = get_config(arch)
+    t0 = time.perf_counter()
+    cfg, params = draw_cut(full, keep, args.seed, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, P), generator=g,
+                                     device=dev, dtype=torch.int32)}
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    moe = "" if cfg.moe is None else (
+        f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+        f"{cfg.moe.d_ff}" + (f", a shared expert of "
+                             f"{cfg.moe.shared_expert_ff}"
+                             if cfg.moe.shared_expert_ff else "")
+        + f", capacity factor {cfg.moe.capacity_factor}")
+    rnn = "" if "rglru" not in cfg.layer_cycle else \
+        f", rnn_width {cfg.rnn_width}, conv_width {cfg.conv_width}"
+    print(f"{tag} {arch}: the first {keep} of {full.n_layers} layers "
+          f"({dict(collections.Counter(T.layer_kinds(cfg)))}), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} query / {cfg.n_kv_heads} kv heads "
+          f"of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, window "
+          f"{cfg.window}{rnn}{moe}, tied embeddings {cfg.tie_embeddings}, "
+          f"{cfg.compute_dtype}; {param_count(T.param_specs(full))} params "
+          f"at full depth ({param_count(T.param_specs(full)) * 2 / 1e9:.1f}"
+          f" GB bf16), {n_bytes / 1e9:.2f} GB on the card, random init at "
+          f"the full depth's scale in {t_init:.1f} s")
+
+    def serve_once():
+        slots = P + gen
+        ex = Executor(UnifiedPolicy(selector=StaticSelector("hopper")),
+                      Ledger(tag))
+        n0 = len(REGIONS)
+        regions = SV.make_serve_regions(cfg, params, ledger=ex.ledger)
+        pprog = SV.capture_prefill_program(
+            regions, batch, T.init_cache(cfg, B, dev, slots),
+            selector=ex.policy.selector)
+        tok, cache = pprog.replay(ex, batch, T.init_cache(cfg, B, dev, slots))
+        dprog = SV.capture_decode_program(
+            regions, P, gen, *tree_place((tok, cache), MemSpace.DEVICE, dev),
+            selector=ex.policy.selector)
+        dprog.replay(ex, tok, cache)
+        del tok, cache
+        warm = compiles_of(REGIONS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tok, cache = pprog.replay(ex, batch, T.init_cache(cfg, B, dev, slots))
+        t1 = time.perf_counter()
+        toks = dprog.replay(ex, tok, cache)
+        t2 = time.perf_counter()
+        seq = torch.stack([t.cpu() for t in toks], 1)
+        return (seq, t1 - t0, t2 - t1, torch.cuda.max_memory_allocated(),
+                REGIONS[n0:], warm)
+
+    reset_plain()
+    seq, t_pre, t_dec, peak, regions, warm = serve_once()
+    check_plain(f"{tag} {arch} capture and replay")
+    if compiles_of(REGIONS) != warm:
+        raise AssertionError(f"{tag} {arch}: a region recompiled after its "
+                             f"warm-up")
+    ops = [op for key, op in T.LAYER_OPS.items()
+           if key[0] == cfg and op.stats.calls]
+    if not ops or any(op.stats.compiles != 1 for op in ops):
+        raise AssertionError(f"{tag} {arch}: a layer kind compiled more than "
+                             "once: " + "; ".join(
+                                 f"{op.label} {op.stats.compiles}"
+                                 for op in ops))
+    print(f"[compile] {tag} {arch}, per region: first call (trace, compile, "
+          f"run) and graphs kept: " + compile_rows(regions)
+          + "; first call of each layer kind: " + "; ".join(
+              f"{op.label} {op.stats.first_call_s:.2f} s "
+              f"({op.stats.compiles} compiled)" for op in ops))
+    print(f"{tag} {arch} unified {B}x{P} prompt, {gen} tokens, compiled: "
+          f"prefill {t_pre * 1e3:.1f} ms ({B * P / t_pre:.0f} prompt tok/s); "
+          f"decode {gen - 1} steps in {t_dec * 1e3:.1f} ms "
+          f"({B * (gen - 1) / t_dec:.1f} tok/s, "
+          f"{t_dec / (gen - 1) * 1e3:.2f} ms/step); peak device memory "
+          f"{peak / 1e9:.2f} GB")
+    if eager:
+        with disable_compile():
+            seq_e, te_pre, te_dec, peak_e, _, _ = serve_once()
+        print(f"{tag} {arch} eager: prefill {te_pre * 1e3:.1f} ms; decode "
+              f"{gen - 1} steps in {te_dec * 1e3:.1f} ms "
+              f"({te_dec / (gen - 1) * 1e3:.2f} ms/step); peak device memory "
+              f"{peak_e / 1e9:.2f} GB; tokens agree with the compiled run's "
+              f"in {(seq_e == seq).float().mean().item():.3f} of places, "
+              f"first differing step of each row {first_diff(seq_e, seq)}")
+
+    # the uncaptured path, compiled: its tokens must equal the replay's
+    reset_plain()
+    pre, dec, mk = SV.build_server(cfg, B, dev, max_len=P + gen)
+    lg, ca = pre(params, batch, mk())
+    toks_o, _ = SV.decode_stream(dec, params, SV.greedy(lg), ca, P, gen)
+    if not torch.equal(seq, torch.stack([t.cpu() for t in toks_o], 1)):
+        raise AssertionError(f"{tag} {arch}: replayed tokens differ from the "
+                             f"uncaptured path's")
+    del lg, ca, toks_o
+
+    # compiled against eager, same inputs: bf16, then f32 (the leaves held:
+    # compiled_vs_eager's docstring)
+    held = None if cfg.moe is not None else ("k", "v", "conv")
+    compiled_vs_eager(tag, cfg, params, batch, pre, mk, P, gen, dev, held)
+    del pre, dec
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    pre32, _, mk32 = SV.build_server(cfg32, B, dev, max_len=P + gen)
+    compiled_vs_eager(tag, cfg32, params32, batch, pre32, mk32, P, gen, dev,
+                      () if cfg.moe is not None else ("k", "v", "conv"))
+    del params32, pre32, mk32
+    check_plain(f"{tag} {arch}")
+    return cfg, params, batch, mk
+
+
+def compiled_vs_eager(tag, cfg, params, batch, pre, mk, P, gen, dev, held):
+    """The compiled prefill (``pre``: logits and every layer's cache
+    leaves) and one compiled decode step's logits against the same
+    functions run eagerly on the same inputs, each as max |d| / max(1,
+    max|x|), all printed.  With ``held`` (cache-leaf names) the logits
+    and those leaves are held to ``ATTN_MODEL_TOL`` of the dtype; None
+    holds nothing.
+
+    What is left out moves by O(1) when one rounding tips a threshold, so
+    no tolerance bounds it: an RG-LRU layer's state h (``HYBRID_LAYER_TOL``'s
+    note), and a MoE model's cache leaves after its first MoE layer, and
+    in bf16 its logits, where a one-ulp change of a router's input flips
+    an expert choice (the token moves by that expert's share, and in a
+    prefill the flip also moves which pairs an expert's capacity drops).
+    In f32 such a flip is rare, and one token's flip reaches the last
+    position's logits only through attention."""
+    from repro_torch.core.regions import compile_region_fn, disable_compile
+    from repro_torch.launch import serve as SV
+    from repro_torch.train import step as train_step
+    B = batch["tokens"].shape[0]
+    tol = ATTN_MODEL_TOL[cfg.compute_dtype]
+    lc, cc = pre(params, batch, mk())
+    dec_logits = compile_region_fn(train_step.make_decode_step(cfg),
+                                   f"decode_logits_{cfg.name}")
+    tok_c = SV.greedy(lc)
+    ldc, _ = dec_logits(params, tok_c, cc, SV.position(P))
+    with disable_compile():
+        pre_e, _, mk_e = SV.build_server(cfg, B, dev, max_len=P + gen)
+        le, ce = pre_e(params, batch, mk_e())
+        lde, _ = train_step.make_decode_step(cfg)(params, tok_c, cc,
+                                                 SV.position(P))
+    by_leaf = {}
+    for a, b in zip(cc, ce):
+        for k in a:
+            if a[k].is_floating_point():
+                by_leaf.setdefault(k, []).append(rel_err(a[k], b[k]))
+    errs = dict(prefill_logits=rel_err(lc, le), decode_logits=rel_err(ldc, lde),
+                state=max([0.0] + [max(v) for k, v in by_leaf.items()
+                                   if held and k in held]))
+    for what, t in (("compiled prefill", lc), ("eager prefill", le),
+                    ("compiled decode", ldc), ("eager decode", lde)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{tag} {cfg.name}: {what} logits are not "
+                                 f"finite")
+    agree = (SV.greedy(lc) == SV.greedy(le)).float().mean().item()
+    limits = "printed, not held" if held is None else (
+        f"limits logits {tol['logits']}" + (
+            f", {'/'.join(held)} {tol['kv']}" if held else ""))
+    print(f"{tag} {cfg.name} {cfg.compute_dtype} compiled vs eager, same "
+          f"inputs (max |d| / max(1, max|x|)): prefill logits "
+          f"{errs['prefill_logits']:.3e}, cache leaves by layer "
+          + "; ".join(f"{k} " + ", ".join(f"{e:.1e}" for e in v)
+                      for k, v in by_leaf.items())
+          + f", one decode step's logits {errs['decode_logits']:.3e} "
+          f"({limits}); first-token agreement {agree:.2f}")
+    if held is not None and not (errs["prefill_logits"] <= tol["logits"]
+                                 and errs["decode_logits"] <= tol["logits"]
+                                 and errs["state"] <= tol["kv"]):
+        raise AssertionError(f"{tag} {cfg.name}: the compiled steps leave the"
+                             f" eager steps' envelope {tol}: {errs}")
+    return errs
+
+
+def layers_alone(tag, cfg, params, batch, mk):
+    """Each compiled prefill layer op against the same op run eagerly,
+    both fed the eager run's input to that layer: per layer, every
+    output's max |d| / max(1, max|x|), printed beside
+    ``HYBRID_LAYER_TOL`` (a few bf16 steps), not held: an RG-LRU gate that
+    one rounding tips moves its channel's h by O(|h|) (1.8e-5 and 1.5e-2
+    of max|h| at layer 1 in two runs on an H100)."""
+    from repro_torch.core.regions import disable_compile
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import embed
+    ops = T.layer_fns(cfg, SV.prefill_ctx())
+    x = embed(params["embed"], batch["tokens"], cfg).float()
+    rows = []
+    with torch.no_grad():              # grad mode off, as in a compiled step
+        for i, (kind, c) in enumerate(zip(T.layer_kinds(cfg), mk())):
+            op = ops[kind]
+            args = (T._leaves(params["layers"][i]), x,
+                    [c[k] for k in op._cache_keys], None)
+            got = op.op(*args)
+            with disable_compile():
+                want = op.op(*args)
+            rows.append((i, kind[0], {k: rel_err(g, w) for k, g, w in zip(
+                ("x",) + op._cache_keys, got, want)
+                if g.is_floating_point()}))
+            x = want[0]
+    worst = max(e for _, _, d in rows for e in d.values())
+    print(f"{tag} {cfg.name} {cfg.compute_dtype}: each compiled prefill layer "
+          f"against the eager layer on the eager layer's input, max |d| / "
+          f"max(1, max|x|): " + "; ".join(
+              f"layer {i} {m} " + ", ".join(f"{k} {e:.1e}" for k, e in
+                                            d.items())
+              for i, m, d in rows) + f"; worst {worst:.1e} against a few "
+          f"bf16 steps, {HYBRID_LAYER_TOL} (printed, not held)")
+
+
+def moe_prefill_stats(cfg, params, batch, mk):
+    """Per MoE layer of an eager prefill of ``batch``: (share of the
+    (token, expert) pairs dropped at capacity, the largest expert's load
+    over the mean load, (G, Tg, C), and on the same input the compiled
+    routing's share of expert choices and of kept flags that differ from
+    the eager routing's)."""
+    from repro_torch.core.regions import compile_region_fn, disable_compile
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models.params import torch_dtype
+    cdt = torch_dtype(cfg.compute_dtype)
+    route_c = compile_region_fn(
+        lambda p, h: tuple(M.route(p, h, cfg.moe)[k] for k in ("idx", "keep")),
+        f"route_{cfg.name}")
+    out = []
+    ctx = SV.prefill_ctx()
+    with disable_compile(), torch.no_grad():
+        x = embed(params["embed"], batch["tokens"], cfg)
+        for i, (p, c, kind) in enumerate(zip(params["layers"], mk(),
+                                             T.layer_kinds(cfg))):
+            x = T._carry(x, cfg, i)
+            if kind[1] == "moe":
+                # the MoE's input as layer_fwd makes it
+                y, _ = A.attn_prefill(p["mixer"], rmsnorm(x, p["norm1"]).to(
+                    cdt), cfg, kind=kind[0], ctx=ctx, cache=c)
+                h2 = rmsnorm(x.to(cdt).float() + y.float(), p["norm2"]).to(cdt)
+                r = M.route(p["mlp"], h2, cfg.moe)
+                load = r["counts"].sum(0).float()
+                idx_c, keep_c = route_c(p["mlp"], h2)
+                out.append((1.0 - r["keep"].float().mean().item(),
+                            (load.max() / load.mean()).item(), r["shape"],
+                            (idx_c != r["idx"]).float().mean().item(),
+                            (keep_c != r["keep"]).float().mean().item()))
+            x, _, _ = T.layer_fwd(p, x, cfg, *kind, ctx, c)
+    return out
+
+
+def serve_hybrid_phase(args, dev, stamp):
+    """``[serve-hybrid]``: recurrentgemma-9b (RG-LRU and local attention)
+    at full width, compiled and eager, and the rows check of its decode
+    layer kinds."""
+    H = SERVE_HYBRID
+    cfg, params, batch, mk = serve_cut(
+        "[serve-hybrid]", args, dev, H["arch"], H["layers"], H["batch"],
+        H["prompt_len"], H["gen"], eager=True)
+    layers_alone("[serve-hybrid]", cfg, params, batch, mk)
+    stamp("[serve-hybrid] recurrentgemma-9b served")
+    rows_check(args, dev, H["arch"], cfg, params,
+               H["prompt_len"] + H["gen"])
+    del params
+
+
+def serve_moe_phase(args, dev, stamp):
+    """``[serve-moe]``: qwen3-moe-30b-a3b and llama4-scout-17b-a16e at full
+    width, compiled, held to eager; the prefill's capacity drops and
+    expert loads; the rows check of their decode layer kinds."""
+    S_ = SERVE_MOE
+    for arch, keep in S_["models"]:
+        cfg, params, batch, mk = serve_cut(
+            "[serve-moe]", args, dev, arch, keep, S_["batch"],
+            S_["prompt_len"], S_["gen"])
+        stats = moe_prefill_stats(cfg, params, batch, mk)
+        print(f"[serve-moe] {arch} prefill of {S_['batch']}x"
+              f"{S_['prompt_len']} tokens, by MoE layer: " + "; ".join(
+                  f"layer {i}: {100 * d:.2f} % of (token, expert) pairs "
+                  f"dropped at capacity (G {G}, Tg {Tg}, C {C}), largest "
+                  f"expert load {mx:.2f}x the mean; the compiled routing of "
+                  f"the same input: {100 * fi:.4f} % of expert choices and "
+                  f"{100 * fk:.4f} % of kept flags differ"
+                  for i, (d, mx, (G, Tg, C), fi, fk) in enumerate(stats)))
+        stamp(f"[serve-moe] {arch} served")
+        rows_check(args, dev, arch, cfg, params,
+                   S_["prompt_len"] + S_["gen"])
+        del params, batch, mk
+
+
+def oversub_moe_phase(args, dev, stamp):
+    """``[oversub-moe]``: one qwen3-moe-30b-a3b layer's experts in pinned
+    host memory, decoded through ``moe_decode_paged`` with no budget and
+    under ``MemoryBudget.for_ratio(footprint, r)``: every output bit for
+    bit the unbudgeted run's, which is held to the dense ``moe_ref``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.ledger import Ledger
+    from repro_torch.core.oversub import MemoryBudget
+    from repro_torch.core.umem import MemSpace, place
+    from repro_torch.models import moe as M
+    from repro_torch.models.params import init_params
+    O = OVERSUB_MOE
+    cfg = get_config(O["arch"])
+    g = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    p = init_params(g, M.moe_specs(cfg), dev)
+    xs = [torch.randn((1, 1, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(O["tokens"])]
+    refs = [M.moe_ref(p, x, cfg)[0] for x in xs]
+    # the expert stacks parked once in pinned host memory; the router stays
+    host = {**p, **{k: place(p[k], MemSpace.HOST) for k in M.EXPERT_KEYS}}
+    del p
+
+    def stream(budget=None, lookahead=True):
+        pager = M.ExpertPager(host, cfg, budget=budget, lookahead=lookahead)
+        ledger = Ledger("oversub-moe")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ys = [M.moe_decode_paged(pager, x, cfg, ledger=ledger)[0] for x in xs]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        pager.close()
+        return pager, ys, dt, ledger, torch.cuda.max_memory_allocated()
+
+    stream()                                      # warm-up
+    pager0, ys0, dt0, _, peak0 = stream()
+    ref_err = max(rel_err(y, r) for y, r in zip(ys0, refs))
+    print(f"[oversub-moe] {O['arch']}: one layer's experts, {cfg.moe.n_experts}"
+          f" slabs of {pager0.slab_bytes / 1e6:.2f} MB "
+          f"({pager0.footprint_bytes / 1e9:.3f} GB) in pinned host memory "
+          f"(pinned {all(t.is_pinned() for t in pager0._host.values())}), "
+          f"top-{cfg.moe.top_k}; {O['tokens']} seeded bf16 tokens of batch 1;"
+          f" unbudgeted: {pager0.stats.fetches} fetches, "
+          f"{pager0.stats.hits} hits, {O['tokens'] / dt0:.1f} tok/s, peak "
+          f"{peak0 / 1e9:.2f} GB; against moe_ref on the card {ref_err:.3e} "
+          f"of max(1, max|ref|) (limit {MOE_REF_TOL})")
+    if not ref_err <= MOE_REF_TOL:
+        raise AssertionError(f"[oversub-moe] the paged decode parts from "
+                             f"moe_ref: {ref_err}")
+    runs = [(r, True) for r in O["ratios"]] + [(O["ratios"][-1], False)]
+    for ratio, lookahead in runs:
+        budget = MemoryBudget.for_ratio(pager0.footprint_bytes, ratio,
+                                        name="moe")
+        pager, ys, dt, ledger, peak = stream(budget, lookahead)
+        same = all(torch.equal(a, b) for a, b in zip(ys0, ys))
+        st = pager.stats
+        print(f"[oversub-moe] ratio {ratio:g}, lookahead "
+              f"{'on' if lookahead else 'off'}: budget {budget.limit_bytes} B;"
+              f" {st.fetches} fetches, {st.hits} hits, {st.evictions} "
+              f"evictions, {st.bytes_fetched / 1e9:.3f} GB fetched, "
+              f"{st.prefetch_hits} prefetch hits, prefetch_overlap_s "
+              f"{st.prefetch_overlap_s:.4f} (ledger gauge "
+              f"{ledger.serve_gauges.get('moe_prefetch_overlap_s', 0.0):.4f},"
+              f" moe_prefetch_hit "
+              f"{ledger.serve_counters.get('moe_prefetch_hit', 0)}); "
+              f"{O['tokens'] / dt:.1f} tok/s; budget high water "
+              f"{budget.stats.high_water_bytes} B against "
+              f"torch.cuda.max_memory_allocated() {peak / 1e9:.3f} GB; "
+              f"every output {'bit for bit' if same else 'NOT'} the "
+              f"unbudgeted run's")
+        if not same:
+            raise AssertionError(f"[oversub-moe] ratio {ratio}: the budgeted "
+                                 f"decode differs from the unbudgeted one")
+        if ratio > 1 and not st.evictions > 0:
+            raise AssertionError(f"[oversub-moe] ratio {ratio} evicted "
+                                 f"nothing")
+        if lookahead != (st.prefetch_hits > 0):
+            raise AssertionError(f"[oversub-moe] prefetch hits {st.prefetch_hits}"
+                                 f" with the lookahead {lookahead}")
+    del host, refs
 
 
 def train_phase(args, dev, stamp):
@@ -1014,9 +1503,10 @@ def train_phase(args, dev, stamp):
     gx = torch.Generator(device=dev).manual_seed(args.seed + 11)
     x0 = embed(p32["embed"], fixed["tokens"], c32)
     dy = torch.randn(x0.shape, generator=gx, device=dev)
-    got = layer.vjp(lp, x0, dy)
+    daux = torch.zeros((), device=dev)       # a dense layer's MoE loss: 0
+    got = layer.vjp(lp, x0, dy, daux)
     with disable_compile():
-        want = layer.vjp(lp, x0, dy)
+        want = layer.vjp(lp, x0, dy, daux)
     vjp_err = max(rel(a, b) for a, b in zip(got, want))
     (lc, _), gc = S.value_and_grad(p32, fixed, c32, tctx)
     with disable_compile():
@@ -1138,10 +1628,75 @@ def train_phase(args, dev, stamp):
     stamp("[train] supervised")
 
 
+#: the phases a child process runs once ahead of this process
+#: (:func:`start_warm`): compile-bound, and needing nothing from the phases
+#: before them
+WARM = ("serve-hybrid", "serve-moe", "oversub-moe")
+
+
+def start_warm(args):
+    """Start ``chip_smoke.py --only <WARM>`` as a child process at the
+    lowest CPU priority: it runs those phases once, checks included, so
+    that their Inductor and Triton compiles land in the on-disk caches the
+    two processes share, while this process runs the phases before them;
+    this process then runs them itself, its compiles reading those caches.
+    The child's output goes to ``build/chip_smoke_warm.log``.  Returns
+    (process, log file, start time)."""
+    path = ROOT / "build" / "chip_smoke_warm.log"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    log = open(path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--seed",
+         str(args.seed), "--only", ",".join(WARM)],
+        stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+        preexec_fn=lambda: os.nice(19))
+    atexit.register(_stop, proc)
+    return proc, log, time.perf_counter()
+
+
+def _stop(proc):
+    """End a child still running (this run failed before it was joined):
+    SIGTERM first, so that it stops its own compile workers."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+
+
+def finish_warm(warm):
+    """Wait for the child of :func:`start_warm` and report it (its
+    failure is not this run's: this process runs and checks the same
+    phases itself)."""
+    proc, log, t0 = warm
+    rc = proc.wait()
+    log.close()
+    tail = pathlib.Path(log.name).read_text().splitlines()[-3:]
+    print(f"[compile] the child process that ran {', '.join(WARM)} ahead "
+          f"(their compiles into the shared caches) exited {rc} after "
+          f"{time.perf_counter() - t0:.0f} s" + ("" if rc == 0 else
+                                                 f": {tail}"), flush=True)
+
+
+#: the phases ``--only`` may run alone (each a function of (args, dev,
+#: stamp) that checks what it runs)
+ONLY = {"serve-hybrid": "serve_hybrid_phase", "serve-moe": "serve_moe_phase",
+        "oversub-moe": "oversub_moe_phase", "engine": "engine_phase",
+        "train": "train_phase"}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default=None,
+                    help="run only these phases, comma-separated, of "
+                    f"{', '.join(ONLY)} (a partial run: it prints no result "
+                    "line)")
     args = ap.parse_args(argv)
+    only = None if args.only is None else args.only.split(",")
+    if only and not set(only) <= set(ONLY):
+        ap.error(f"--only takes {', '.join(ONLY)}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs an NVIDIA GPU")
@@ -1203,6 +1758,16 @@ def main(argv=None):
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 comparisons below
     torch.backends.cudnn.allow_tf32 = False
+    if only:
+        if "engine" in only:                   # its rwkv6-7b runs K5
+            build.library()
+        for phase in only:
+            reset_plain()
+            globals()[ONLY[phase]](args, dev, stamp)
+            check_plain(f"[{phase}]")
+            stamp(phase)
+        print(json.dumps({"partial": only}))
+        return
 
     # -- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -1377,6 +1942,8 @@ def main(argv=None):
     del r32, k32, v32, logw, u, S0, kargs, out, S, want_out, want_S
 
     stamp("kernels")
+    # the compile-bound phases after [serve-attn], run ahead in a child
+    ahead = start_warm(args)
 
     # -- 4. CFD path: unified + hopper at 200^3 -------------------------
     def reset_launches():
@@ -1423,6 +1990,14 @@ def main(argv=None):
     print(f"[compile] [main] {N}^3 unified/hopper, per region: first call "
           f"(trace, compile, run) and graphs kept; 0 compiled after the "
           f"warm-up step: " + compile_rows(app_regions))
+    # where the compile seconds went: Dynamo's and Inductor's own timers,
+    # summed over every compile of the run so far (the [main] regions)
+    heads, secs = torch._dynamo.utils.compile_times(repr="csv",
+                                                    aggregate=True)
+    top = sorted(((float(v), k) for k, v in zip(heads, secs)), reverse=True)
+    print("[compile] [main] Dynamo/Inductor timers, seconds summed over the "
+          "regions' compiles, largest first: " + "; ".join(
+              f"{k} {v:.2f}" for v, k in top[:12]))
     print(f"[main] unified/hopper {N}^3 inner_max=25, compiled: FOM "
           f"{fom:.4f} s/step (warm-up step {fom_warm:.4f} s) res_u "
           f"{m['res_u']:.3e} iters_u {m['iters_u']} res_p {m['res_p']:.3e} "
@@ -2348,7 +2923,8 @@ def main(argv=None):
         layer: per layer, the worst max |d| / max(1, max|x|) over the
         layer's output and its k, v."""
         op = T.layer_fns(cfg_a, SV.prefill_ctx())[("attn", "dense")]
-        x = embed(p_a["embed"], batch_a["tokens"], cfg_a)
+        # the f32 stream a layer op takes (the embedding, a carry)
+        x = embed(p_a["embed"], batch_a["tokens"], cfg_a).float()
         worst = []
         # grad mode off, as inside a compiled step (the layer's guards)
         with torch.no_grad():
@@ -2486,6 +3062,19 @@ def main(argv=None):
     del qparams
 
     stamp("serve-attn")
+
+    # -- 10b. the recurrent-hybrid and MoE families, the expert pager ----
+    finish_warm(ahead)
+    stamp("the child's run of the phases ahead")
+    reset_plain()
+    serve_hybrid_phase(args, dev, stamp)
+    stamp("serve-hybrid")
+    serve_moe_phase(args, dev, stamp)
+    stamp("serve-moe")
+    reset_plain()
+    oversub_moe_phase(args, dev, stamp)
+    check_plain("[oversub-moe]")
+    stamp("oversub-moe")
 
     # -- 11. [engine]: continuous batching under Poisson traffic ----------
     engine_k5 = engine_phase(args, dev, stamp)

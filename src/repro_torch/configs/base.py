@@ -4,8 +4,9 @@ A copy of the JAX package's ``repro.configs.base`` (plain dataclasses):
 every architecture is a declarative :class:`ModelConfig` that
 ``repro_torch.models.transformer`` turns into a layer program.  Layer
 kinds are those of the reference (``attn``, ``attn_local``, ``attn_enc``,
-``attn_xdec``, ``rglru``, ``rwkv``); the port runs ``rwkv``, ``attn``
-and ``attn_local`` so far (ROADMAP A.5).
+``attn_xdec``, ``rglru``, ``rwkv``); the port runs ``rwkv``, ``attn``,
+``attn_local`` and ``rglru``, with the dense, channel-mix or MoE MLP, so
+far (``attn_enc`` and ``attn_xdec``: ROADMAP A.5.7).
 """
 from __future__ import annotations
 

@@ -20,8 +20,10 @@ failing.  Its consumers:
 * :class:`~repro_torch.serve.paged_kv.PagedKVCache` mirrors its
   device-resident KV page bytes into it and spills LRU entries to host
   memory while it is over the limit (serve's ``--kv-oversub-ratio``);
-* still to port: the MoE expert pager (``ExpertPager``, ROADMAP A.5.5)
-  and the sharded scatter of ``ShardExecutor`` (A.9).
+* :class:`~repro_torch.models.moe.ExpertPager` charges each expert slab
+  it pages in from pinned host memory and evicts LRU slabs while it is
+  over the limit (the MoE leg: oversubscribed decode);
+* still to port: the sharded scatter of ``ShardExecutor`` (ROADMAP A.9).
 
 The budget stays logical on the card, as in the reference: nothing caps
 what CUDA allocates.  Chunking bounds the copy granule, not what the pool

@@ -193,13 +193,23 @@ def _openmp_cxx() -> str:
 
 def _configure_compile() -> None:
     """Once, before the first compile: give Inductor a C++ compiler that
-    builds OpenMP code (:func:`_openmp_cxx`), and make a region that hits
-    Dynamo's recompile limit raise instead of running on eagerly."""
+    builds OpenMP code (:func:`_openmp_cxx`), let the CPU's flags name the
+    vector ISA of its C++ code (unless ``TORCHINDUCTOR_VEC_ISA_OK`` says
+    otherwise), and make a region that hits Dynamo's recompile limit raise
+    instead of running on eagerly.
+
+    Without ``vec_isa_ok``, Inductor's first C++ kernel of a process
+    probes each ISA the CPU lists by building and loading a test of ATen's
+    vector headers with g++: an H100 host's first compiled 200^3 SIMPLE
+    step took 172.72 s with the probe and 122.67 s without it
+    (``tools/profile_first_step.py``; PERF.md)."""
     global _configured
     if _configured:
         return
     from torch._inductor import config as inductor_config
     inductor_config.cpp.cxx = (None, _openmp_cxx())
+    if "TORCHINDUCTOR_VEC_ISA_OK" not in os.environ:
+        inductor_config.cpp.vec_isa_ok = True
     if hasattr(torch._dynamo.config, "fail_on_recompile_limit_hit"):
         torch._dynamo.config.fail_on_recompile_limit_hit = True
     _configured = True

@@ -2,7 +2,8 @@
 compiling its layer loop, and of one train step's gradients.
 
     PYTHONPATH=src python -m repro_torch.launch.compile_depth \\
-        [--arch rwkv6-7b] [--reduced] [--depths 2,6] \\
+        [--arch rwkv6-7b|recurrentgemma-9b|qwen3-moe-30b-a3b|...] \\
+        [--reduced] [--depths 2,6] \\
         [--designs inline,nested,layer_op] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.compile_depth --mode train \\
         [--arch tinyllama-1.1b] [--depths 2,4,8] [--batch 4 --seq 1024]
@@ -72,18 +73,8 @@ def one_run(args, design: str, depth: int) -> dict:
     else:
         layers = None
         if design == "nested":
-            (mk, lk), = dict.fromkeys(T.layer_kinds(cfg))
-
-            @torch.compiler.nested_compile_region
-            def layer(p, x, c, pos):   # tensors out: x, then the new cache
-                x, nc = T.layer_fwd(p, x, cfg, mk, lk,
-                                    dataclasses.replace(ctx, pos=pos), c)
-                return (x, *(nc[k] for k in c))
-
-            def nested(p, x, c, pos):
-                x, *state = layer(p, x, c, pos)
-                return x, dict(zip(c, state))
-            layers = {(mk, lk): nested}
+            layers = {kind: _nested(cfg, ctx, *kind)
+                      for kind in dict.fromkeys(T.layer_kinds(cfg))}
 
         def step(p, t, c, pos):
             return T.decode_step(p, t, c, pos, cfg, ctx, layers)
@@ -115,6 +106,21 @@ def one_run(args, design: str, depth: int) -> dict:
             else "cpu"}
 
 
+def _nested(cfg, ctx, mk: str, lk: str):
+    """A layer of kind ``(mk, lk)`` as a ``nested_compile_region`` call,
+    in the signature of a layer op: ``(x, new cache)``."""
+    @torch.compiler.nested_compile_region
+    def layer(p, x, c, pos):   # tensors out: x, then the new cache
+        x, nc, _ = T.layer_fwd(p, x, cfg, mk, lk,
+                               dataclasses.replace(ctx, pos=pos), c)
+        return (x, *(nc[k] for k in c))
+
+    def nested(p, x, c, pos):
+        x, *state = layer(p, x, c, pos)
+        return x, dict(zip(c, state))
+    return nested
+
+
 def train_run(args, cfg, params, dev) -> dict:
     """The first call of ``value_and_grad`` on one batch, and its parts'
     compile records."""
@@ -144,7 +150,9 @@ def main(argv=None):
                                  "repro_torch.launch.compile_depth")
     ap.add_argument("--mode", choices=("decode", "train"), default="decode")
     ap.add_argument("--arch", default=None,
-                    help="rwkv6-7b (decode) or tinyllama-1.1b (train)")
+                    help="rwkv6-7b (decode) or tinyllama-1.1b (train) by "
+                    "default; any ported arch, recurrentgemma-9b, "
+                    "qwen3-moe-30b-a3b and llama4-scout-17b-a16e included")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--depths", default=None,
                     help="2,6 (decode) or 2,4,8 (train)")

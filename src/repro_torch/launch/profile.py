@@ -3,7 +3,8 @@ compiled prefill and one compiled decode step of the captured serve
 programs, summarised.
 
     PYTHONPATH=src python -m repro_torch.launch.profile \\
-        [--arch rwkv6-7b|tinyllama-1.1b|llama3.2-3b] \\
+        [--arch rwkv6-7b|tinyllama-1.1b|llama3.2-3b|recurrentgemma-9b|
+                qwen3-moe-30b-a3b|llama4-scout-17b-a16e|...] \\
         [--batch 4 --prompt-len 1024] [--layers N] [--reduced] \\
         [--trace-dir DIR]
 

@@ -17,6 +17,9 @@ ledger) and the deterministic data pipeline.  ``--report`` prints the
         [--policy unified|discrete|host|adaptive] \\
         [--ckpt-dir D --ckpt-every 2 --fail-at 2] [--report]
 
+Every ported arch trains (the MoE archs ``qwen3-moe-30b-a3b`` and
+``llama4-scout-17b-a16e`` add ``MOE_AUX_WEIGHT`` times their load-balancing
+loss, printed as ``moe_aux``; ``recurrentgemma-9b`` runs its RG-LRU scan).
 Runs on CUDA unless ``--device cpu`` is given.  ``--layers N`` cuts the
 depth (printed).  ``--policy auto`` and ``--verify`` wait for the tuner
 and the verifier (ROADMAP A.8); there is no mesh (A.9).
@@ -189,8 +192,10 @@ def main(argv=None):
         for step in range(start, start + args.steps):
             state, metrics = step_fn(state, batch_fn(step))
             losses.append(float(metrics["loss"]))
+            aux = f" moe_aux {float(metrics['moe_aux']):.4f}" \
+                if cfg.moe is not None else ""
             print(f"[train] step {step} loss {losses[-1]:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f}")
+                  f"gnorm {float(metrics['grad_norm']):.3f}{aux}")
     synchronize()
     dt = time.perf_counter() - t0
     toks = args.steps * args.batch * args.seq

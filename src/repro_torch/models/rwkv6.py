@@ -68,7 +68,9 @@ def rwkv_state_specs(cfg, batch: int) -> dict:
 
 def _ddlerp(p, nm, x, x_prev):
     """Data-dependent token-shift lerp (RWKV6): x + (x_prev - x) * mix."""
-    dx = (x_prev - x).float()
+    # the reference's XLA keeps this bf16 difference unrounded in f32 (it
+    # fuses the subtraction into the f32 math that reads it; ROADMAP C.2)
+    dx = x_prev.float() - x.float()
     base = x.float() + dx * p[f"mu_{nm}"]
     A, B = p[f"A_{nm}"], p[f"B_{nm}"]
     lora = torch.tanh(base.to(A.dtype) @ A) @ B

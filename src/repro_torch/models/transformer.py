@@ -13,10 +13,23 @@ Three entry points share the layer interpreter: :func:`forward_train`
 (full sequence, no cache), :func:`prefill` (full prompt, fills the
 recurrent state or the KV cache) and :func:`decode_step` (one token
 against it).  The port runs the ``rwkv`` mixer with its channel-mix MLP,
-and the global ``attn`` and sliding-window ``attn_local`` mixers (RoPE,
-GQA, an optional QKV bias) with the dense SwiGLU MLP; a local layer's KV
-cache is a ring of ``min(s_max, window)`` slots.  Every other mixer
-raises ``NotImplementedError`` (ROADMAP A.5).
+the global ``attn`` and sliding-window ``attn_local`` mixers (RoPE, GQA,
+an optional QKV bias) and the RG-LRU ``rglru`` mixer with the dense
+SwiGLU MLP, and ``attn`` with the MoE MLP (:mod:`repro_torch.models.moe`);
+a local layer's KV cache is a ring of ``min(s_max, window)`` slots, an
+RG-LRU layer's state its ``h`` (f32) and conv window.  Every other layer
+kind raises ``NotImplementedError`` (ROADMAP A.5.6, A.5.7).  A layer
+returns the MoE load-balancing loss ``aux`` beside its output, as the
+reference's does (0 for a dense MLP); training sums it over the layers.
+
+The residual stream rounds where the reference's does (ROADMAP C.2):
+the reference runs a scanned layer cycle (and the remainder) as one XLA
+computation, which fuses each residual add into the RMSNorm that reads
+it and keeps the sum in f32 there, while the stream it stores (a scan
+carry) is in the compute dtype.  So a layer takes and returns the stream
+as f32 (the unrounded sum of its last residual add), every residual add
+reads its rounding, and :func:`_carry` rounds it at the reference's scan
+carries.
 
 Given ``layers`` (:func:`layer_fns`), each layer kind runs as a
 :class:`LayerOp` and the final norm and logits as a :class:`HeadOp`,
@@ -51,6 +64,8 @@ from repro_torch.core.regions import (CompileStats, compile_disabled,
                                       compile_region_fn)
 from repro_torch.core.umem import canonical, tree_map
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
+from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.layers import (embed, embed_specs, lm_logits, mlp,
                                        mlp_specs, noshard, rmsnorm,
@@ -75,14 +90,18 @@ class Ctx:
 ATTN_MIXERS = ("attn", "attn_local")
 
 #: the layer kinds the port runs: (mixer, mlp kind)
-PORTED = (("rwkv", "cm"), ("attn", "dense"), ("attn_local", "dense"))
+PORTED = (("rwkv", "cm"), ("attn", "dense"), ("attn_local", "dense"),
+          ("rglru", "dense"), ("attn", "moe"))
+
+#: the ROADMAP item that ports each mixer still waiting
+_WAITING = {"attn_enc": "A.5.7", "attn_xdec": "A.5.7"}
 
 
-def _not_ported(what: str, item: str = "A.5"):
+def _not_ported(what: str, mixer: str = ""):
+    item = _WAITING.get(mixer, "A.5")
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP {item}); the port runs the rwkv "
-        "mixer with its channel-mix and the attn and attn_local mixers with "
-        "the dense MLP")
+        f"{what} is not ported yet (ROADMAP {item}); the port runs: "
+        + ", ".join(f"({m}, {k})" for m, k in PORTED))
 
 
 # ---------------------------------------------------------------------------
@@ -132,12 +151,22 @@ def layers_of(cfg, tree) -> list:
 
 def _one_layer_specs(cfg, mixer: str, mlp_kind: str) -> dict:
     if (mixer, mlp_kind) not in PORTED:
-        raise _not_ported(f"layer ({mixer!r}, {mlp_kind!r})")
+        raise _not_ported(f"layer ({mixer!r}, {mlp_kind!r})", mixer)
     d = cfg.d_model
     s = {"norm1": rmsnorm_spec(d), "norm2": rmsnorm_spec(d)}
     if mixer in ATTN_MIXERS:
-        return {**s, "mixer": A.attn_specs(cfg), "mlp": mlp_specs(cfg)}
-    return {**s, "mixer": R.rwkv_specs(cfg), "mlp": R.channelmix_specs(cfg)}
+        s["mixer"] = A.attn_specs(cfg)
+    elif mixer == "rglru":
+        s["mixer"] = G.rglru_specs(cfg)
+    else:
+        s["mixer"] = R.rwkv_specs(cfg)
+    if mlp_kind == "moe":
+        s["mlp"] = M.moe_specs(cfg)
+    elif mlp_kind == "cm":
+        s["mlp"] = R.channelmix_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(cfg)
+    return s
 
 
 def _by_plan(cfg, one) -> dict:
@@ -167,7 +196,8 @@ def init(gen: torch.Generator, cfg, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Cache / state layout: the rwkv recurrent state, the attention KV cache
+# Cache / state layout: the recurrent states (rwkv, RG-LRU), the attention
+# KV cache
 # ---------------------------------------------------------------------------
 
 def _one_layer_cache_specs(cfg, mixer, batch, s_max: int):
@@ -176,8 +206,10 @@ def _one_layer_cache_specs(cfg, mixer, batch, s_max: int):
             raise ValueError("an attention layer's KV cache needs s_max >= 1 "
                              "slots (the prompt plus the generated tokens)")
         return A.cache_specs(cfg, mixer, batch, s_max)
+    if mixer == "rglru":
+        return G.rglru_state_specs(cfg, batch)
     if mixer != "rwkv":
-        raise _not_ported(f"mixer {mixer!r}")
+        raise _not_ported(f"mixer {mixer!r}", mixer)
     rs = R.rwkv_state_specs(cfg, batch)
     rs["x_cm"] = ParamSpec((batch, cfg.d_model), ("batch", None),
                            cfg.compute_dtype, "zeros")
@@ -207,9 +239,9 @@ def init_row_cache(cfg, rows: int, device, s_max: int = 0) -> list:
 
 def init_cache(cfg, batch: int, device, s_max: int = 0) -> list:
     """The empty cache, one dict per layer: ``{"S", "x_prev", "x_cm"}``
-    (zeros) for an rwkv layer, ``{"k", "v", "pos"}`` for an attention
-    layer, global or local (zeros, and -1 in every ``pos`` slot:
-    empty)."""
+    (zeros) for an rwkv layer, ``{"h", "conv"}`` (zeros) for an RG-LRU
+    layer, ``{"k", "v", "pos"}`` for an attention layer, global or local
+    (zeros, and -1 in every ``pos`` slot: empty)."""
     def empty(s):
         if s.dtype == "int32":
             return torch.full(s.shape, -1, dtype=torch.int32, device=device)
@@ -222,53 +254,81 @@ def init_cache(cfg, batch: int, device, s_max: int = 0) -> list:
 # ---------------------------------------------------------------------------
 
 def layer_fwd(p, x, cfg, mixer: str, mlp_kind: str, ctx: Ctx, cache=None):
-    """Returns (x_out, new_cache)."""
+    """Returns (x_out, new_cache, aux_loss): ``aux`` the MoE layer's
+    load-balancing loss, a 0-d f32 zero for any other MLP.
+
+    ``x`` is the residual stream, in f32 where the reference keeps it
+    unrounded (:func:`_run_layers`), and ``x_out`` is the f32 sum of the
+    layer's last residual add; the stream itself, which every residual
+    add reads, is their rounding to the compute dtype."""
     if (mixer, mlp_kind) not in PORTED:
-        raise _not_ported(f"layer ({mixer!r}, {mlp_kind!r})")
+        raise _not_ported(f"layer ({mixer!r}, {mlp_kind!r})", mixer)
+    cdt = torch_dtype(cfg.compute_dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(x.float(), p["norm1"]).to(cdt)
+    x = x.to(cdt)
+    new_cache = cache
     if mixer in ATTN_MIXERS:
-        return _attn_layer(p, x, cfg, mixer, ctx, cache)
-    h = rmsnorm(x, p["norm1"])
-    state = None
-    if cache is not None:
-        state = {"S": cache["S"], "x_prev": cache["x_prev"]}
-    if ctx.mode == "decode":
-        y, ns = R.rwkv_decode(p["mixer"], h, cfg, ctx=ctx, state=state)
+        if ctx.mode == "prefill":
+            y, new_cache = A.attn_prefill(p["mixer"], h, cfg, kind=mixer,
+                                          ctx=ctx, cache=cache)
+        elif ctx.mode == "decode":
+            y, new_cache = A.attn_decode(p["mixer"], h, cfg, kind=mixer,
+                                         ctx=ctx, cache=cache)
+        else:
+            y = A.attn_train(p["mixer"], h, cfg, kind=mixer, ctx=ctx)
+    elif mixer == "rglru":
+        state = None
+        if cache is not None:
+            state = {"h": cache["h"], "conv": cache["conv"]}
+        if ctx.mode == "decode":
+            y, ns = G.rglru_decode(p["mixer"], h, cfg, ctx=ctx, state=state)
+        else:
+            y, ns = G.rglru_train(p["mixer"], h, cfg, ctx=ctx, state=state)
+        if cache is not None:
+            new_cache = ns
     else:
-        y, ns = R.rwkv_train(p["mixer"], h, cfg, ctx=ctx, state=state,
-                             chunk=ctx.rwkv_chunk, impl=ctx.rwkv_impl)
+        state = None
+        if cache is not None:
+            state = {"S": cache["S"], "x_prev": cache["x_prev"]}
+        if ctx.mode == "decode":
+            y, ns = R.rwkv_decode(p["mixer"], h, cfg, ctx=ctx, state=state)
+        else:
+            y, ns = R.rwkv_train(p["mixer"], h, cfg, ctx=ctx, state=state,
+                                 chunk=ctx.rwkv_chunk, impl=ctx.rwkv_impl)
+        if cache is not None:
+            new_cache = {**cache, **ns}
+    # the reference's XLA fuses this residual add into the norm below and
+    # keeps the sum in f32 there (excess precision): the norm reads the
+    # unrounded sum, the residual stream the rounded one (ROADMAP C.2)
+    h2 = rmsnorm(x.float() + y.float(), p["norm2"]).to(cdt)
     x = x + y
-
-    h2 = rmsnorm(x, p["norm2"])
-    # channel-mix token shift: train shifts in-sequence; decode uses state
-    if ctx.mode == "decode" and cache is not None:
-        shift = cache["x_cm"][:, None]
+    if mlp_kind == "moe":
+        if ctx.mode == "decode":
+            # a decode step's rows are padded to DECODE_ROWS (8) at its
+            # boundary, so the dispatch makes 8 groups of one token each:
+            # each row routes alone, and with C >= 8 >= Tg no pair of it
+            # is dropped (an expert gets at most one pair of a token)
+            G_, Tg, C = M.dispatch_shape(h2.shape[0] * h2.shape[1], cfg.moe)
+            assert Tg <= C, (G_, Tg, C)
+        y2, aux = M.moe_mlp(p["mlp"], h2, cfg, ctx.shd)
+    elif mlp_kind == "cm":
+        # channel-mix token shift: train shifts in-sequence; decode uses state
+        if ctx.mode == "decode" and cache is not None:
+            shift = cache["x_cm"][:, None]
+        else:
+            prev = cache["x_cm"] if (cache is not None and
+                                     ctx.mode == "prefill") \
+                else torch.zeros((h2.shape[0], h2.shape[-1]), dtype=h2.dtype,
+                                 device=h2.device)
+            shift = torch.cat([prev[:, None], h2[:, :-1]], dim=1)
+        y2 = R.channelmix(p["mlp"], h2, shift, cfg, ctx.shd)
+        if cache is not None:
+            # not a view of h2
+            new_cache = {**new_cache, "x_cm": h2[:, -1].clone()}
     else:
-        prev = cache["x_cm"] if (cache is not None and ctx.mode == "prefill") \
-            else torch.zeros((h2.shape[0], h2.shape[-1]), dtype=h2.dtype,
-                             device=h2.device)
-        shift = torch.cat([prev[:, None], h2[:, :-1]], dim=1)
-    y2 = R.channelmix(p["mlp"], h2, shift, cfg, ctx.shd)
-    new_cache = None if cache is None else \
-        {**cache, **ns, "x_cm": h2[:, -1].clone()}      # not a view of h2
-    return x + y2, new_cache
-
-
-def _attn_layer(p, x, cfg, mixer: str, ctx: Ctx, cache):
-    """An attention layer of kind ``mixer`` (global ``attn`` or
-    sliding-window ``attn_local``) and its dense MLP: (x_out, new
-    cache)."""
-    h = rmsnorm(x, p["norm1"])
-    if ctx.mode == "prefill":
-        y, new_cache = A.attn_prefill(p["mixer"], h, cfg, kind=mixer,
-                                      ctx=ctx, cache=cache)
-    elif ctx.mode == "decode":
-        y, new_cache = A.attn_decode(p["mixer"], h, cfg, kind=mixer,
-                                     ctx=ctx, cache=cache)
-    else:
-        y, new_cache = A.attn_train(p["mixer"], h, cfg, kind=mixer,
-                                    ctx=ctx), cache
-    x = x + y
-    return x + mlp(p["mlp"], rmsnorm(x, p["norm2"]), ctx.shd), new_cache
+        y2 = mlp(p["mlp"], h2, ctx.shd)
+    return x.float() + y2.float(), new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +361,8 @@ def _ctx_key(mixer: str, ctx: Ctx) -> tuple:
     the op's key, so ``attn`` and ``attn_local`` are two ops."""
     if mixer == "rwkv":
         return ("rwkv", ctx.rwkv_chunk, ctx.rwkv_impl)
+    if mixer == "rglru":
+        return ("rglru",)
     return ("attn", ctx.q_chunk, ctx.flash)
 
 
@@ -460,7 +522,7 @@ class _RowOp:
                            -1 if j in self.shared else 0)
                  for j, c in enumerate(cache)],
                 None if pos is None else _pad_rows(pos[g0:g0 + n], R, 0))
-            groups.append([o[:n] for o in outs])
+            groups.append([canonical(o)[:n] for o in outs])
         outs = groups[0] if len(groups) == 1 else \
             [torch.cat(g) for g in zip(*groups)]
         # views of the padded outputs, with the strides of fresh tensors
@@ -502,9 +564,12 @@ class _RowOp:
 
 
 def _like_inputs(params, x, cache, pos):
-    """Outputs shaped, typed and laid out as ``x`` and the cache leaves."""
-    return [torch.empty_like(t, memory_format=torch.contiguous_format)
-            for t in (x, *cache)]
+    """Outputs shaped and laid out as ``x`` and the cache leaves, typed as
+    the cache leaves and, for ``x``, as :func:`layer_fwd`'s f32 stream."""
+    return [torch.empty_like(x, dtype=torch.float32,
+                             memory_format=torch.contiguous_format)] + \
+        [torch.empty_like(t, memory_format=torch.contiguous_format)
+         for t in cache]
 
 
 class LayerOp(_RowOp):
@@ -522,14 +587,15 @@ class LayerOp(_RowOp):
     decode position (a 0-d tensor or one per row, or None outside
     decode).  A decode layer runs its rows in fixed groups
     (:data:`DECODE_ROWS`, the :class:`_RowOp` docstring).  Its outputs
-    are ``x`` and the new cache leaves, contiguous; its fake implementation
-    gives each the shape, dtype and layout of the input it replaces (a
+    are ``x`` (the f32 residual sum, :func:`layer_fwd`) and the new cache
+    leaves, contiguous; its fake implementation gives each the shape and
+    layout of the input it replaces and the cache leaves their dtypes (a
     layer maps ``x`` and its recurrent state or KV cache to tensors like
     them)."""
 
     def __init__(self, cfg, mixer: str, mlp_kind: str, ctx: Ctx):
-        impl = (ctx.rwkv_impl or "ref") if mixer == "rwkv" else \
-            ("flash" if ctx.flash else "chunked")
+        impl = (ctx.rwkv_impl or "ref") if mixer == "rwkv" else "scan" \
+            if mixer == "rglru" else ("flash" if ctx.flash else "chunked")
         template = _one_layer_specs(cfg, mixer, mlp_kind)
         cspecs = _one_layer_cache_specs(cfg, mixer, 1, 1)
         self._cache_keys = tuple(cspecs)
@@ -538,7 +604,9 @@ class LayerOp(_RowOp):
             p = _rebuild(template, iter(params))
             c = dict(zip(self._cache_keys, cache)) if cache else None
             lctx = ctx if pos is None else dataclasses.replace(ctx, pos=pos)
-            x, nc = layer_fwd(p, x, cfg, mixer, mlp_kind, lctx, c)
+            # the MoE loss is a training quantity: serving drops it, as the
+            # reference's prefill and decode do
+            x, nc, _ = layer_fwd(p, x, cfg, mixer, mlp_kind, lctx, c)
             return [x] if nc is None else [x, *(nc[k] for k in
                                                 self._cache_keys)]
         self.layer = layer
@@ -587,10 +655,11 @@ class HeadOp(_RowOp):
         def head(params, x, cache, pos):
             norm, w = params
             p = {"tok": w} if cfg.tie_embeddings else {"head": w}
-            return [lm_logits(p, rmsnorm(x, norm), cfg, shd)]
+            return [lm_logits(p, _final_norm(x, norm, cfg), cfg, shd)]
 
         def fake(params, x, cache, pos):
-            return [x.new_empty((*x.shape[:-1], cfg.vocab))]
+            return [x.new_empty((*x.shape[:-1], cfg.vocab),
+                                dtype=torch_dtype(cfg.compute_dtype))]
         super().__init__(f"head_{len(LAYER_OPS)}", head, fake,
                          fixed_rows=True)
         self.tied = cfg.tie_embeddings
@@ -639,21 +708,22 @@ class _Remat(torch.autograd.Function):
     def forward(ctx, layer, x, *params):
         ctx.layer = layer
         ctx.save_for_backward(x, *params)
-        return layer.forward(list(params), x)
+        return tuple(layer.forward(list(params), x))
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, dy, daux):
         x, *params = ctx.saved_tensors
-        *dparams, dx = ctx.layer.vjp(params, x, dy.contiguous())
+        *dparams, dx = ctx.layer.vjp(params, x, dy.contiguous(), daux)
         return (None, dx, *dparams)
 
 
 class TrainLayer:
     """One layer kind of ``cfg`` in train mode as two executables compiled
     once (:func:`~repro_torch.core.regions.compile_region_fn`; eager inside
-    ``disable_compile``): ``forward(params, x) -> y``, and ``vjp(params,
-    x, dy) -> [*dparams, dx]``, ``torch.func.vjp`` of the same layer,
-    which recomputes it.  ``__call__`` joins them in an
+    ``disable_compile``): ``forward(params, x) -> (y, aux)``, and
+    ``vjp(params, x, dy, daux) -> [*dparams, dx]``, ``torch.func.vjp`` of
+    the same layer, which recomputes it (``aux`` the MoE loss, its
+    recomputation the forward's own ops).  ``__call__`` joins them in an
     ``autograd.Function`` (rematerialisation: the reference's
     ``jax.checkpoint`` around each layer cycle)."""
 
@@ -664,11 +734,12 @@ class TrainLayer:
 
         def fwd(params, x):
             p = _rebuild(template, iter(params))
-            return layer_fwd(p, x, cfg, mixer, mlp_kind, ctx)[0]
+            y, _, aux = layer_fwd(p, x, cfg, mixer, mlp_kind, ctx)
+            return y, aux
 
-        def vjp(params, x, dy):
+        def vjp(params, x, dy, daux):
             _, pull = torch.func.vjp(fwd, params, x)
-            dparams, dx = pull(dy)
+            dparams, dx = pull((dy, daux))
             return [*dparams, dx]
         self.label = label
         self.fwd_fn, self.vjp_fn = fwd, vjp
@@ -684,16 +755,17 @@ class TrainLayer:
                                           stats=self.stats)
         return self._fwd(params, canonical(x))
 
-    def vjp(self, params, x, dy):
+    def vjp(self, params, x, dy, daux):
         if compile_disabled():
-            return self.vjp_fn(params, x, dy)
+            return self.vjp_fn(params, x, dy, daux)
         if self._vjp is None:
             self._vjp = compile_region_fn(self.vjp_fn, self.label + "_vjp",
                                           stats=self.vjp_stats)
-        return self._vjp(params, canonical(x), canonical(dy))
+        return self._vjp(params, canonical(x), canonical(dy), daux)
 
     def __call__(self, p, x):
-        """The layer's output for parameters ``p`` (a dict) and ``x``."""
+        """The layer's output and MoE loss, ``(y, aux)``, for parameters
+        ``p`` (a dict) and ``x``."""
         return _Remat.apply(self, x, *_leaves(p))
 
 
@@ -716,19 +788,43 @@ def train_layer_fns(cfg, ctx: Ctx) -> dict:
 def forward_train(params, batch, cfg, ctx: Ctx):
     """batch: ``tokens`` [B, S] -> (logits [B, S, vocab], aux).  Each layer
     is rematerialised under ``ctx.remat`` (:class:`TrainLayer`), else it
-    runs inline under autograd.  ``aux`` is the MoE load-balancing loss:
-    0, since MoE is not ported (ROADMAP A.5.5)."""
+    runs inline under autograd.  ``aux`` is the MoE load-balancing loss
+    summed over the layers in order, as the reference's ``_run_layers``
+    sums it (0 without a MoE layer)."""
     ctx = dataclasses.replace(ctx, mode="train")
     layers = train_layer_fns(cfg, ctx) if ctx.remat else None
     x = embed(params["embed"], batch["tokens"], cfg, ctx.shd)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (mk, lk) in enumerate(layer_kinds(cfg)):
+        x = _carry(x, cfg, i)
         if layers is None:
-            x = layer_fwd(params["layers"][i], x, cfg, mk, lk, ctx)[0]
+            x, _, a = layer_fwd(params["layers"][i], x, cfg, mk, lk, ctx)
         else:
-            x = layers[(mk, lk)](params["layers"][i], x)
-    x = rmsnorm(x, params["final_norm"])
-    return (lm_logits(params["embed"], x, cfg, ctx.shd),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+            x, a = layers[(mk, lk)](params["layers"][i], x)
+        aux = aux + a
+    x = _final_norm(_carry(x, cfg, cfg.n_layers), params["final_norm"], cfg)
+    return lm_logits(params["embed"], x, cfg, ctx.shd), aux
+
+
+def _carry(x, cfg, i: int):
+    """The residual stream before layer ``i`` (``i = n_layers``: after the
+    last), as an f32 tensor: rounded to the compute dtype where the
+    reference's stream is a scan carry (the start of each scanned layer
+    cycle, the start of the remainder, the end of the scan), else the
+    unrounded f32 sum the previous layer returned.  The reference runs a
+    cycle's layers, and the remainder's, in one XLA computation, which
+    fuses each residual add into the next RMSNorm and keeps the sum in f32
+    there (excess precision); the carry between scan steps is stored in
+    the compute dtype (ROADMAP C.2)."""
+    cyc, n_full, _ = layer_plan(cfg)
+    if i <= n_full * len(cyc) and i % len(cyc) == 0:
+        x = x.to(torch_dtype(cfg.compute_dtype))
+    return x.float()
+
+
+def _final_norm(x, scale, cfg):
+    """The final RMSNorm of the f32 stream ``x``, in the compute dtype."""
+    return rmsnorm(x, scale).to(torch_dtype(cfg.compute_dtype))
 
 
 def _run_layers(params, x, cfg, ctx: Ctx, caches=None, layers=None):
@@ -738,11 +834,13 @@ def _run_layers(params, x, cfg, ctx: Ctx, caches=None, layers=None):
     new_caches = []
     for i, (mk, lk) in enumerate(layer_kinds(cfg)):
         c = caches[i] if caches is not None else None
+        x = _carry(x, cfg, i)
         if layers is None:
-            x, nc = layer_fwd(params["layers"][i], x, cfg, mk, lk, ctx, c)
+            x, nc, _ = layer_fwd(params["layers"][i], x, cfg, mk, lk, ctx, c)
         else:
             x, nc = layers[(mk, lk)](params["layers"][i], x, c, ctx.pos)
         new_caches.append(nc)
+    x = _carry(x, cfg, cfg.n_layers)
     return x, (new_caches if caches is not None else None)
 
 
@@ -794,5 +892,5 @@ def _head(params, x, cfg, ctx: Ctx, layers=None):
     when given, else inline."""
     if layers is not None:
         return layers["head"](params, x)
-    return lm_logits(params["embed"], rmsnorm(x, params["final_norm"]), cfg,
-                     ctx.shd)
+    return lm_logits(params["embed"],
+                     _final_norm(x, params["final_norm"], cfg), cfg, ctx.shd)

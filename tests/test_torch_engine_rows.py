@@ -7,7 +7,9 @@ step pads its rows once, and the ops' vmap rules fold their instances).
 On the CPU the same code runs as on the card, with the plain versions:
 one decode layer and the head, fed ``n = 1..4`` rows built from the same
 seeded rows, give each row bit for bit its ``n = 1`` output (reduced
-gemma3-1b, qwen2.5-32b, tinyllama-1.1b, rwkv6-7b, bf16).  A 4-slot engine's
+gemma3-1b, qwen2.5-32b, tinyllama-1.1b, rwkv6-7b, recurrentgemma-9b (its
+RG-LRU state per row), qwen3-moe-30b-a3b and llama4-scout-17b-a16e (a
+MoE layer routes each row in a group of its own), bf16).  A 4-slot engine's
 tokens equal a one-slot engine's and the solo decode's on seeded traffic,
 and ``replay_batch`` still agrees with the solo replays.  Layers run
 eagerly (``disable_compile``); their compiled twins are in
@@ -28,7 +30,8 @@ from repro_torch.serve import (PagedKVCache, ServeEngine, make_traffic,
                                run_traffic, solo_reference)
 from repro_torch.serve.traffic import assert_parity
 
-ARCHS = ("gemma3-1b", "qwen2.5-32b", "tinyllama-1.1b", "rwkv6-7b")
+ARCHS = ("gemma3-1b", "qwen2.5-32b", "tinyllama-1.1b", "rwkv6-7b",
+         "recurrentgemma-9b", "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e")
 N = 4
 MAX_LEN = 32
 

@@ -679,7 +679,9 @@ def test_offload_kv_on_card_migrates_in_for_a_compiled_region(cuda,
     assert row.staging_s > 0 and (row.device_calls, row.host_calls) == (1, 0)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "rwkv6-7b",
+                                  "recurrentgemma-9b", "qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e"])
 def test_compiled_decode_rows_are_bit_for_bit_their_solo_rows_on_card(
         cuda, compiled, arch):
     """The card twin of tests/test_torch_engine_rows.py: every compiled
@@ -730,6 +732,50 @@ def test_compiled_decode_rows_are_bit_for_bit_their_solo_rows_on_card(
         got = ops["head"](params, hx[:n])
         for i in range(n):
             assert torch.equal(got[i:i + 1], solo[i]), ("head", n, i)
+
+
+def test_expert_pager_on_card_is_bit_for_bit_under_every_budget(cuda):
+    """The card twin of tests/test_torch_moe.py's pager check: the experts
+    parked in pinned host memory, slabs copied on a side stream; at
+    ratios 1, 2 and 4 and with the lookahead off every output equals the
+    unbudgeted run's bit for bit, and the unbudgeted run is within 2e-2 of
+    the largest magnitude of ``moe_ref`` (bf16)."""
+    import dataclasses
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.oversub import MemoryBudget
+    from repro_torch.models import moe as M
+    from repro_torch.models.params import init_params
+    cfg = reduced(get_config("qwen3-moe-30b-a3b"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=16, top_k=2, d_ff=32))
+    p = init_params(torch.Generator(device=cuda).manual_seed(0),
+                    M.moe_specs(cfg), cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    xs = [torch.randn((1, 1, cfg.d_model), generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(16)]
+
+    def stream(budget=None, lookahead=True):
+        pager = M.ExpertPager(p, cfg, budget=budget, lookahead=lookahead)
+        assert all(t.is_pinned() for t in pager._host.values())
+        ys = [M.moe_decode_paged(pager, x, cfg)[0] for x in xs]
+        pager.close()
+        return pager, ys
+
+    pager0, ys0 = stream()
+    for x, y in zip(xs, ys0):
+        want = M.moe_ref(p, x, cfg)[0].float()
+        assert (y.float() - want).abs().max() <= \
+            2e-2 * max(1.0, want.abs().max().item())
+    for ratio, lookahead in ((1.0, True), (2.0, True), (4.0, True),
+                             (4.0, False)):
+        budget = MemoryBudget.for_ratio(pager0.footprint_bytes, ratio)
+        pager, ys = stream(budget, lookahead)
+        assert all(torch.equal(a, b) for a, b in zip(ys0, ys)), ratio
+        assert pager.stats.fetches > 0
+        if ratio == 4.0:
+            assert pager.stats.evictions > 0
+            assert (pager.stats.prefetch_hits > 0) == lookahead
 
 
 def test_compiled_train_step_matches_eager_on_card(cuda, compiled):

@@ -60,7 +60,11 @@ def test_walk_finds_the_slice():
                  "repro_torch.optim.adamw", "repro_torch.data.pipeline",
                  "repro_torch.checkpoint.ckpt", "repro_torch.runtime.fault",
                  "repro_torch.launch.train",
-                 "repro_torch.launch.compile_depth"):
+                 "repro_torch.launch.compile_depth",
+                 "repro_torch.models.rglru", "repro_torch.models.moe",
+                 "repro_torch.configs.recurrentgemma_9b",
+                 "repro_torch.configs.qwen3_moe_30b_a3b",
+                 "repro_torch.configs.llama4_scout_17b_a16e"):
         assert name in MODULES
 
 

@@ -45,7 +45,8 @@ from repro_torch.serve.scheduler import (DECODE, DONE, QUEUED,
                                          batch_for_prompt)
 from repro_torch.serve.traffic import assert_parity
 
-ARCHS = ("gemma3-1b", "qwen2.5-32b", "tinyllama-1.1b", "rwkv6-7b")
+ARCHS = ("gemma3-1b", "qwen2.5-32b", "tinyllama-1.1b", "rwkv6-7b",
+         "recurrentgemma-9b", "qwen3-moe-30b-a3b")
 MAX_LEN = 32
 PAGE = 4
 
